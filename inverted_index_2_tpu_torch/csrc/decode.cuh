@@ -1,0 +1,67 @@
+// Posting-block decode for one warp: the device function shared by kernel
+// K1 (decode_postings.cu) and kernel K2 (fused_and.cu).
+//
+// Arena row = one 128-value block of the codec/packing.py layout with
+// power-of-two byte widths: [header = b | n_blk << 8, anchor, packed ...],
+// b in {0, 8, 16, 32}. Delta j is byte j (b = 8), half j (b = 16) or word j
+// (b = 32) of the packed words; v[0] = anchor, v[j+1] = v[j] + d[j] + 1,
+// all mod 2^32. The TPU decoder interleaved byte planes with a permutation
+// matmul on the MXU; here each lane pulls its four deltas out with shifts
+// and masks, and the 127-step prefix sum is a warp scan on uint32, which
+// wraps mod 2^32 as the codec does. Any other class decodes as zero deltas
+// and words past the row read as zero, as in ops/decode.py.
+#pragma once
+
+#include <cstdint>
+
+namespace tpi {
+
+constexpr int kBlock = 128;
+
+// All 32 lanes of the warp must call this together. Lane `lane` receives
+// values 4*lane .. 4*lane+3 of the block in v[0..3]. Reads only `row[0,
+// stride)`.
+static __device__ __forceinline__ void decode_block_warp(
+    const uint32_t* __restrict__ row, int stride, int lane, uint32_t v[4]) {
+  const uint32_t header = __ldg(row);
+  const uint32_t anchor = __ldg(row + 1);
+  const uint32_t cls = (header & 0xFFu) >> 3;
+  uint32_t d0 = 0u, d1 = 0u, d2 = 0u, d3 = 0u;
+  if (cls == 1u) {
+    const int wi = 2 + lane;
+    const uint32_t w = wi < stride ? __ldg(row + wi) : 0u;
+    d0 = w & 0xFFu;
+    d1 = (w >> 8) & 0xFFu;
+    d2 = (w >> 16) & 0xFFu;
+    d3 = w >> 24;
+  } else if (cls == 2u) {
+    const int wi = 2 + 2 * lane;
+    const uint32_t w0 = wi < stride ? __ldg(row + wi) : 0u;
+    const uint32_t w1 = wi + 1 < stride ? __ldg(row + wi + 1) : 0u;
+    d0 = w0 & 0xFFFFu;
+    d1 = w0 >> 16;
+    d2 = w1 & 0xFFFFu;
+    d3 = w1 >> 16;
+  } else if (cls == 4u) {
+    const int wi = 2 + 4 * lane;
+    d0 = wi < stride ? __ldg(row + wi) : 0u;
+    d1 = wi + 1 < stride ? __ldg(row + wi + 1) : 0u;
+    d2 = wi + 2 < stride ? __ldg(row + wi + 2) : 0u;
+    d3 = wi + 3 < stride ? __ldg(row + wi + 3) : 0u;
+  }
+  const uint32_t s0 = d0 + 1u, s1 = d1 + 1u, s2 = d2 + 1u;
+  const uint32_t total = s0 + s1 + s2 + (d3 + 1u);
+  // inclusive warp scan of the per-lane step totals
+  uint32_t inc = total;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, inc, off);
+    if (lane >= off) inc += y;
+  }
+  v[0] = anchor + (inc - total);
+  v[1] = v[0] + s0;
+  v[2] = v[1] + s1;
+  v[3] = v[2] + s2;
+}
+
+}  // namespace tpi

@@ -1,0 +1,519 @@
+"""Batched query serving over a frozen snapshot on a torch device
+(counterpart of models/query_engine.py; main tier, lookup and AND only).
+
+The main path: QueryEngine.from_index(index, L, device=...) freezes the
+index into compact host tables, uploads them (one gather expands the block
+arena), and serves
+    lookup(terms)                 resolve -> K1 decode -> ladder re-serve
+    boolean(queries, "and")       resolve -> reorder -> K2 fused AND
+    boolean_staged(batches, "and") the same, depth-pipelined (staged.py)
+Lists longer than the fast-path pad L are re-served exactly at the
+smallest ladder level (4L, 16L, ...) that fits; a base list above the
+largest level K2 takes (cuda_fused.MAX_LEVEL) goes to the concat AND.
+
+What the JAX engine does beyond this slice raises NotImplementedError that
+names its ROADMAP item: OR and pagination (queue 1 item 5), the delta tier
+and refresh (item 6), the host route (item 7), prefix and range reads,
+checkpoints and warmup (item 8).
+"""
+from __future__ import annotations
+
+import itertools as it
+import os
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from inverted_index_2_tpu.codec import keys as keys_mod
+
+from ..ops.concat_bool import boolean_concat_and_step, resolve_step
+from ..ops.cuda_fused import MAX_LEVEL
+from ..ops.setops import filter_removed as _filter_removed
+from ..utils.u32 import to_device, to_numpy_u32
+from .snapshot import HostTables, IndexSnapshot, snapshot_tables, upload_tables
+from .staged import StagedStreamsMixin
+from .steps import (
+    _RESERVE_BUDGET,
+    _host_resolve_sb,
+    _ladder,
+    _narrow_keys,
+    _not_ported,
+    _round_up,
+    boolean_fused_staged_step,
+    boolean_fused_step,
+    lookup_step,
+)
+
+
+class ServingState:
+    """Everything one serve call reads: the snapshot (with its tombstones)
+    and the retained host tables. Entry points capture one reference up
+    front, so a later refresh (ROADMAP queue 1 item 6) can publish a new
+    state with one assignment."""
+
+    __slots__ = ("snap", "tables")
+
+    def __init__(self, snap: IndexSnapshot,
+                 tables: Optional[HostTables] = None):
+        self.snap = snap
+        self.tables = tables
+
+    def max_count(self) -> int:
+        return self.snap.max_count
+
+    def width(self) -> int:
+        return self.snap.width
+
+    def host_ready(self) -> bool:
+        return self.tables is not None
+
+
+class QueryEngine(StagedStreamsMixin):
+    """Batched lookup and AND serving over a frozen IndexSnapshot on
+    `device`. L is the fast-path pad: longer lists re-serve exactly at a
+    ladder level."""
+
+    # one-shot boolean() batches at least this large go through the staged
+    # stream (same contract, pipelined)
+    _STAGED_DELEGATE_MIN = 512
+
+    # first results shipped with the counts by the one-shot fused pass; the
+    # rare wider rows re-run through the sort path
+    _FUSED_SMALL_P = 32
+
+    # the stream's narrower result prefix (same overflow rule)
+    _STAGED_SMALL_P = 8
+
+    def __init__(self, snapshot: IndexSnapshot, L: int = 1024,
+                 tables: Optional[HostTables] = None, *, device):
+        want = torch.device(device)
+        have = snapshot.device
+        if want.type not in ("cuda", "cpu"):
+            raise ValueError(f"device {want}: the port serves on CUDA (kernels "
+                             "K1/K2) or on the CPU (their plain versions)")
+        if have.type != want.type or want.index not in (None, have.index):
+            raise ValueError(f"snapshot lives on {have}, engine device is "
+                             f"{want}")
+        self.device = have
+        self._state = ServingState(snapshot, tables=tables)
+        self.L = max(128, _round_up(L, 128))
+        self._staged_levels_cache = None
+        self.last_stream_stats = None  # set by boolean_staged
+
+    @classmethod
+    def from_index(cls, index, L: int = 1024, apply_removed: bool = False,
+                   keep_tables: bool = True, *, device):
+        """Freeze `index` and serve it on `device`. keep_tables retains the
+        compact host tables (the concat AND then resolves on the host)."""
+        t = snapshot_tables(index, apply_removed=apply_removed)
+        return cls(upload_tables(t, device=device), L=L,
+                   tables=t if keep_tables else None, device=device)
+
+    @property
+    def snap(self) -> IndexSnapshot:
+        return self._state.snap
+
+    @property
+    def tables(self) -> Optional[HostTables]:
+        return self._state.tables
+
+    def _levels(self, st: Optional[ServingState] = None) -> List[int]:
+        st = st if st is not None else self._state
+        return _ladder(self.L, st.max_count())
+
+    def _level_for(self, need: int, st: Optional[ServingState] = None) -> int:
+        for lv in self._levels(st):
+            if lv >= need:
+                return lv
+        return _round_up(need, 128)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return to_device(a, self.device)
+
+    # -- not in this slice -------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, *a, **kw):
+        _not_ported("QueryEngine.from_checkpoint", 8)
+
+    def refresh(self, index, apply_removed: bool = False) -> bool:
+        _not_ported("QueryEngine.refresh (delta tier)", 6)
+
+    def warmup(self, *a, **kw):
+        _not_ported("QueryEngine.warmup", 8)
+
+    def read_range(self, *a, **kw):
+        _not_ported("QueryEngine.read_range", 8)
+
+    def prefix_search(self, *a, **kw):
+        _not_ported("QueryEngine.prefix_search", 8)
+
+    def lookup_host(self, *a, **kw):
+        _not_ported("QueryEngine.lookup_host (host route)", 7)
+
+    def boolean_host(self, *a, **kw):
+        _not_ported("QueryEngine.boolean_host (host route)", 7)
+
+    def lookup_staged(self, *a, **kw):
+        _not_ported("QueryEngine.lookup_staged (concat stream)", 5)
+
+    # -- exact lookup ------------------------------------------------------
+
+    def _lookup_on(self, s: IndexSnapshot, qkeys: torch.Tensor, removed,
+                   L: Optional[int] = None):
+        return lookup_step(
+            s.keys, s.blocks, s.term_block_start, s.counts, qkeys,
+            L or self.L, s.hash_slots, s.max_probes, removed)
+
+    def lookup(self, terms: Sequence[bytes],
+               filter_removed: bool = False) -> List[Optional[np.ndarray]]:
+        """Exact postings per term (None for misses). filter_removed drops
+        tombstoned values. Lists longer than L are re-served at a ladder
+        level, so results are always exact."""
+        if not terms:
+            return []
+        st = self._state
+        return self._exact_rows(st, st.snap, terms, filter_removed)
+
+    def _exact_rows(self, st: ServingState, s: IndexSnapshot,
+                    terms: Sequence[bytes],
+                    filter_removed: bool) -> List[Optional[np.ndarray]]:
+        if s.n_terms == 0:
+            return [None] * len(terms)
+        removed = s.removed if filter_removed else None
+        qk = keys_mod.pack_terms(list(terms), width=s.width)
+        found, vals, n, raw = self._lookup_on(s, self._dev(qk), removed)
+        found = found.cpu().numpy()
+        n = n.cpu().numpy()
+        raw = raw.cpu().numpy()
+        vals = to_numpy_u32(vals)
+        out: List[Optional[np.ndarray]] = [None] * len(terms)
+        long_idx = []
+        for i in range(len(terms)):
+            if not found[i]:
+                continue
+            if raw[i] > self.L:
+                long_idx.append(i)
+            else:
+                out[i] = vals[i, : n[i]].copy()
+        # largest need first: each batch re-serves at ITS level
+        long_idx.sort(key=lambda i: -raw[i])
+        while long_idx:
+            lv = self._level_for(int(max(raw[i] for i in long_idx)), st)
+            qb = max(1, _RESERVE_BUDGET // lv)
+            batch, long_idx = long_idx[:qb], long_idx[qb:]
+            _, v2, n2, _ = self._lookup_on(s, self._dev(qk[batch]), removed,
+                                           L=lv)
+            n2 = n2.cpu().numpy()
+            v2 = to_numpy_u32(v2[:, : max(1, int(n2.max(initial=0)))])
+            for j, i in enumerate(batch):
+                out[i] = v2[j, : n2[j]].copy()
+        return out
+
+    # -- boolean AND -------------------------------------------------------
+
+    def _pack_boolean(self, st: ServingState, queries):
+        """Query batch -> (qk (Q, K, W+1) uint32, kv (Q,) int32); one pack
+        over the flattened terms."""
+        nq = len(queries)
+        kv = np.fromiter(map(len, queries), np.int32, count=nq)
+        K = max(1, int(kv.max(initial=0)))
+        W = st.width()
+        qk = np.zeros((nq, K, W + 1), dtype=np.uint32)
+        packed = keys_mod.pack_terms(list(it.chain.from_iterable(queries)),
+                                     width=W)
+        kvq = kv.astype(np.int64)
+        rows = np.repeat(np.arange(nq), kvq)
+        qoffs = np.zeros(nq + 1, dtype=np.int64)
+        np.cumsum(kvq, out=qoffs[1:])
+        cols = np.arange(qoffs[-1], dtype=np.int64) - np.repeat(qoffs[:-1], kvq)
+        qk[rows, cols] = packed
+        return qk, kv
+
+    def _pack_boolean_cols(self, st: ServingState, blob, offsets, qoffs):
+        """Columnar batch (blob, offsets[T+1], qoffs[Q+1]) -> (qk, kv)."""
+        W = st.width()
+        offsets = np.asarray(offsets, dtype=np.int64)
+        qoffs = np.asarray(qoffs, dtype=np.int64)
+        nq = len(qoffs) - 1
+        kvq = np.diff(qoffs)
+        K = max(1, int(kvq.max(initial=1)))
+        qk = np.zeros((nq, K, W + 1), dtype=np.uint32)
+        kv = kvq.astype(np.int32)
+        blob8 = (np.frombuffer(blob, dtype=np.uint8)
+                 if isinstance(blob, (bytes, bytearray))
+                 else np.asarray(blob, dtype=np.uint8))
+        packed = keys_mod.pack_blob(blob8, offsets, W)
+        rows = np.repeat(np.arange(nq), kvq)
+        cols = np.arange(qoffs[-1], dtype=np.int64) - np.repeat(qoffs[:-1], kvq)
+        qk[rows, cols] = packed
+        return qk, kv
+
+    def _batch_pack(self, st: ServingState, queries):
+        """One stream batch (term lists or a columnar triple) -> (nq, qk,
+        kv)."""
+        if isinstance(queries, tuple) and len(queries) == 3:
+            nq = len(queries[2]) - 1
+            if nq <= 0:
+                return 0, None, None
+            qk, kv = self._pack_boolean_cols(st, *queries)
+            return nq, qk, kv
+        if not queries:
+            return 0, None, None
+        qk, kv = self._pack_boolean(st, queries)
+        return len(queries), qk, kv
+
+    def boolean(self, queries: Sequence[Sequence[bytes]], op: str,
+                filter_removed: bool = False):
+        """Batch of AND queries of 1..K terms -> sorted unique arrays. A
+        missing term empties its query. Exact at any list length."""
+        if op != "and":
+            _not_ported(f"boolean op {op!r}", 5)
+        if not queries:
+            return []
+        st = self._state
+        if len(queries) >= self._STAGED_DELEGATE_MIN and st.snap.n_terms > 0:
+            return self.boolean_staged(
+                [queries], op, filter_removed, _st=st)[0]
+        if st.snap.n_terms == 0:
+            return [np.zeros(0, np.uint32) for _ in queries]
+        qk, kv = self._pack_boolean(st, queries)
+        removed = st.snap.removed if filter_removed else None
+        return self._boolean_fused(st, queries, qk, kv, removed)
+
+    def _fused_run(self, st, lv, qk_sub, kv_sub, removed, small_p: int = 0):
+        s = st.snap
+        return boolean_fused_step(
+            s.keys, s.blocks, s.term_block_start, s.counts,
+            self._dev(_narrow_keys(qk_sub, s.width)), self._dev(kv_sub), lv,
+            removed, s.hash_slots, s.max_probes, small_p)
+
+    def _staged_levels(self, st: ServingState) -> torch.Tensor:
+        """Ascending ladder levels K2 serves (<= MAX_LEVEL), on the device;
+        cached per ladder."""
+        lvls = tuple(lv for lv in self._levels(st) if lv <= MAX_LEVEL)
+        cached = self._staged_levels_cache
+        if cached is None or cached[0] != lvls:
+            arr = torch.tensor(lvls or (self.L,), dtype=torch.int64,
+                               device=self.device)
+            cached = (lvls, arr)
+            self._staged_levels_cache = cached
+        return cached[1]
+
+    def _fused_run_staged(self, st, qk_sub, kv_sub, removed):
+        s = st.snap
+        return boolean_fused_staged_step(
+            s.keys, s.blocks, s.term_block_start, s.counts,
+            self._dev(_narrow_keys(qk_sub, s.width)), self._dev(kv_sub),
+            self.L, self._staged_levels(st), removed, s.hash_slots,
+            s.max_probes, self._STAGED_SMALL_P)
+
+    def _dedup_batch(self, nq: int, qk, kv):
+        """Cross-query dedup for a staged AND batch: group identical packed
+        rows on the host, serve each distinct query once, and fan results
+        out through `inv` at assembly. Returns (nu, qk_u, kv_u, inv), inv
+        None when dedup does not pay (fewer than 64 queries,
+        TPI_STAGED_DEDUP=0, or too few duplicates to shrink the batch by a
+        grid step of batch/16 rows; TPI_STAGED_DEDUP=force skips the cost
+        gate, never the shrink check)."""
+        mode = os.environ.get("TPI_STAGED_DEDUP", "1")
+        if nq < 64 or mode == "0":
+            return nq, qk, kv, None
+        comb = np.concatenate(
+            [qk.reshape(nq, -1).astype(np.int64),
+             kv.astype(np.int64).reshape(nq, 1)], axis=1)
+        # 64-bit row hash: collisions only merge candidate groups, which
+        # the full-row verify below splits again exactly
+        h = comb @ self._dedup_mults(comb.shape[1])
+        grid = max(8, _round_up(nq, 8) // 16)
+        target = _round_up(len(np.unique(h)), grid)
+        if target >= _round_up(nq, grid):
+            return nq, qk, kv, None
+        saved_rows = _round_up(nq, grid) - target
+        # cost gate: the JAX engine's constants (saved rows x L x 0.003
+        # against 4000), carried over unmeasured on the card (PERF.md)
+        if mode != "force" and saved_rows * self.L * 0.003 < 2 * 2000.0:
+            return nq, qk, kv, None
+        order = np.argsort(h, kind="stable")
+        sc = comb[order]
+        neq = np.empty(nq, dtype=bool)
+        neq[0] = True
+        np.any(sc[1:] != sc[:-1], axis=1, out=neq[1:])
+        first = order[neq]
+        inv = np.empty(nq, dtype=np.int32)
+        inv[order] = (np.cumsum(neq) - 1).astype(np.int32)
+        nu = len(first)
+        target = _round_up(nu, grid)
+        qk_u = np.zeros((target,) + qk.shape[1:], dtype=qk.dtype)
+        kv_u = np.zeros(target, dtype=kv.dtype)
+        qk_u[:nu] = qk[first]
+        kv_u[:nu] = kv[first]
+        return nu, qk_u, kv_u, inv
+
+    @staticmethod
+    def _dedup_mults(n: int) -> np.ndarray:
+        """Fixed odd multipliers for the dedup row hash."""
+        return np.array(
+            [(0x9E3779B97F4A7C15 - (i * 2 + 1) * 0x61C8864680B583EB)
+             & 0xFFFFFFFFFFFFFFFF for i in range(max(n, 64))],
+            dtype=np.uint64,
+        ).astype(np.int64)[:n]
+
+    def _classify_fused(self, st, fetched, positions, qk, kv, setter,
+                        wide, longs, overs):
+        """Assign direct results from a small-P fetch; defer the rare
+        classes: small-P overflow (sort path), base count over L (ladder
+        re-serve), ladder level over MAX_LEVEL (concat AND)."""
+        small, oc, need, oc_pre = fetched
+        P = self._FUSED_SMALL_P
+        for j, pos in enumerate(positions):
+            if need[j] <= self.L and oc_pre[j] <= P:
+                setter(pos, small[j, : oc[j]].copy())
+            elif need[j] <= self.L:
+                wide.append((pos, qk[j], int(kv[j])))
+            elif self._level_for(int(need[j]), st) <= MAX_LEVEL:
+                longs.append((pos, qk[j], int(kv[j]), int(need[j])))
+            else:
+                overs.append((pos, qk[j], int(kv[j])))
+
+    def _drain_levels(self, items, run, setter):
+        """Exact re-serve drain. items: (pos, qk_row (K_i, W+1), kv, lv),
+        served in batches at the level of their largest member (exact for
+        every smaller one). All dispatches are issued before any fetch;
+        in-flight results are capped at 4x the reserve budget."""
+        dispatches = []  # (members, out, cnt)
+        pend = 0
+
+        def drain():
+            nonlocal pend
+            counts = [d[2].cpu().numpy() for d in dispatches]
+            for (members, o, _), c in zip(dispatches, counts):
+                o = to_numpy_u32(o[:, : max(1, int(c.max(initial=0)))])
+                for j, t in enumerate(members):
+                    setter(t[0], o[j, : c[j]].copy())
+            dispatches.clear()
+            pend = 0
+
+        items.sort(key=lambda t: -t[3])
+        i = 0
+        while i < len(items):
+            lv = int(items[i][3])
+            K = max(t[1].shape[0] for t in items)
+            qb = max(1, _RESERVE_BUDGET // (K * lv))
+            batch = items[i: i + qb]
+            i += len(batch)
+            bq = self._stack_rows([t[1] for t in batch])
+            bkv = np.array([t[2] for t in batch], dtype=np.int32)
+            o2, c2, _ = run(lv, bq, bkv)
+            dispatches.append((batch, o2, c2))
+            pend += len(batch) * lv * 4
+            if pend > 4 * _RESERVE_BUDGET:
+                drain()
+        if dispatches:
+            drain()
+
+    @staticmethod
+    def _stack_rows(rows):
+        """Stack per-query (K_b, W+1) key rows into (B, Kmax, W+1)."""
+        Kmax = max(r.shape[0] for r in rows)
+        bq = np.zeros((len(rows), Kmax, rows[0].shape[1]), dtype=np.uint32)
+        for j, r in enumerate(rows):
+            bq[j, : r.shape[0]] = r
+        return bq
+
+    def _fused_followups(self, st, setter, wide, longs, overs, removed):
+        """Serve the deferred classes once per call (shared by boolean()
+        and the staged stream)."""
+        items = [(t[0], t[1], t[2], self.L) for t in wide]
+        items += [(t[0], t[1], t[2], self._level_for(int(t[3]), st))
+                  for t in longs]
+        self._drain_levels(
+            items, lambda lv, q, k2: self._fused_run(st, lv, q, k2, removed),
+            setter)
+        if overs:
+            bq = self._stack_rows([t[1] for t in overs])
+            bkv = np.array([t[2] for t in overs], dtype=np.int32)
+            res = self._boolean_concat(st, [None] * len(overs), bq, bkv,
+                                       "and", removed)
+            for t, v in zip(overs, res):
+                setter(t[0], v)
+
+    def _boolean_fused(self, st, queries, qk, kv, removed):
+        """AND through K2: one pass + one fetch for the common case;
+        ladder re-serves keyed on the base (smallest-list) count."""
+        small, oc, need, oc_pre = self._fused_run(
+            st, self.L, qk, kv, removed, small_p=self._FUSED_SMALL_P)
+        fetched = (to_numpy_u32(small), oc.cpu().numpy(),
+                   need.cpu().numpy(), oc_pre.cpu().numpy())
+        results: List[Optional[np.ndarray]] = [None] * len(queries)
+        wide, longs, overs = [], [], []
+
+        def setter(i, v):
+            results[i] = v
+
+        self._classify_fused(st, fetched, range(len(queries)), qk, kv,
+                             setter, wide, longs, overs)
+        self._fused_followups(st, setter, wide, longs, overs, removed)
+        return results
+
+    # size classes of the concat AND: total-block budgets per query
+    _SB_CLASSES = (8, 32, 64, 128, 512, 2048, 8192, 32768)
+
+    def _boolean_concat(self, st, queries, qk, kv, op: str, removed):
+        """Exact AND sized by each query's real total postings: resolve,
+        group queries into total-block classes, then one concat-decode +
+        sort + run-length pass per class. Fetches each class's rows trimmed
+        to its largest result."""
+        if op != "and":
+            _not_ported(f"concat {op!r}", 5)
+        s = st.snap
+        nq = len(queries)
+        if st.host_ready():
+            idxs, cnt, _ = _host_resolve_sb(st.tables, qk)
+            idx_h, found_h = np.maximum(idxs, 0), idxs >= 0
+            sb_q = np.minimum(-(-cnt[:nq] // 128), 1 << 30).sum(axis=1)
+        else:
+            idx, found, raw = resolve_step(
+                s.keys, s.counts, self._dev(_narrow_keys(qk, s.width)),
+                s.hash_slots, s.max_probes)
+            idx_h = idx.cpu().numpy()
+            found_h = found.cpu().numpy()
+            raw_h = raw.cpu().numpy().astype(np.int64)
+            sb_q = np.minimum(-(-raw_h[:nq] // 128), 1 << 30).sum(axis=1)
+        results: List[Optional[np.ndarray]] = [None] * nq
+        order = np.argsort(sb_q, kind="stable")
+        stride = int(s.blocks.shape[1])
+        pos = 0
+        for SB in self._SB_CLASSES:
+            hi = int(np.searchsorted(sb_q[order], SB, side="right"))
+            self._concat_class(s, order[pos:hi], SB, stride, idx_h, found_h,
+                               kv, removed, results)
+            pos = hi
+        # queries beyond the largest class: one at a time at their exact
+        # block budget
+        for qi in order[pos:]:
+            self._concat_class(s, np.array([qi]),
+                               _round_up(int(sb_q[qi]), 8), stride, idx_h,
+                               found_h, kv, removed, results)
+        return results
+
+    def _concat_class(self, s, members, SB, stride, idx_h, found_h, kv,
+                      removed, results):
+        """Serve `members` (query indexes) at block budget SB, in chunks
+        whose decoded rows stay within the reserve budget."""
+        qb = max(8, (_RESERVE_BUDGET // (SB * max(stride, 128))) // 8 * 8)
+        for c0 in range(0, len(members), qb):
+            batch = members[c0: c0 + qb]
+            out, oc = boolean_concat_and_step(
+                s.blocks, s.term_block_start, s.counts,
+                torch.from_numpy(idx_h[batch].astype(np.int64)).to(
+                    self.device),
+                torch.from_numpy(found_h[batch]).to(self.device),
+                self._dev(kv[batch].astype(np.int32)), SB)
+            if removed is not None and removed.shape[0] > 0:
+                out, oc = _filter_removed(out, oc, removed)
+            oc = oc.cpu().numpy()
+            out = to_numpy_u32(out[:, : max(1, int(oc.max(initial=0)))])
+            for j, qi in enumerate(batch):
+                results[qi] = out[j, : oc[j]].copy()

@@ -1,0 +1,100 @@
+"""Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND).
+
+At first use (never at import) nvcc compiles every `csrc/*.cu` for Hopper
+(`sm_90a`) into one shared library with a plain C interface, under
+`build/kernels/` in the checkout, named by a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one loads as it is. The
+library is loaded with ctypes: every pointer and the stream pass as
+c_void_p, and each entry point returns cudaGetLastError() after its launch,
+which `check` turns into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the nvcc run in this process (None: loaded)
+build_log = ""        # nvcc's output of that run (ptxas register/smem report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels of inverted_index_2_tpu_torch cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libtpi_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _compile(so: Path) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+
+
+def _bind(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.tpi_decode_postings.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp]
+    lib.tpi_decode_postings.restype = i
+    lib.tpi_fused_and.argtypes = [vp, i, vp, vp, vp, i, i, i, vp, vp, vp]
+    lib.tpi_fused_and.restype = i
+    lib.tpi_error_string.argtypes = [i]
+    lib.tpi_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library():
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = library_path()
+            if not so.exists():
+                _compile(so)
+            _lib = _bind(ctypes.CDLL(str(so)))
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib.tpi_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

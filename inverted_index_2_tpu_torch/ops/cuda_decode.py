@@ -1,0 +1,62 @@
+"""Kernel K1: batched posting decode (csrc/decode_postings.cu).
+
+Replaces inverted_index_2_tpu/ops/pallas_decode.py::decode_postings_pallas,
+the TPU kernel whose XLA twin (ops/decode.py::gather_postings_arena) the
+JAX lookup_step runs. Bound on the card by arena bytes: each block row a
+query needs is read once, one warp per row. Its decode device function
+(csrc/decode.cuh) is the one K2 runs inside itself.
+
+`decode_postings` takes the plain version (ops/decode.py) only for tensors
+on the CPU; for CUDA tensors it launches K1 or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .decode import BLOCK, gather_postings_arena
+
+
+def _check_int32(name: str, t: torch.Tensor, ndim: int, device) -> None:
+    if t.dtype != torch.int32 or t.dim() != ndim:
+        raise ValueError(f"{name}: want int32 with {ndim} dims, got "
+                         f"{t.dtype} with shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the arena on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def decode_postings(blocks: torch.Tensor, term_block_start: torch.Tensor,
+                    counts: torch.Tensor, term_idx: torch.Tensor, L: int):
+    """(vals (Q, L) u32 bits, raw counts (Q,) int32) for dictionary indexes
+    `term_idx` (int32, each in [0, N)). Raw counts may exceed L; values past
+    a row's count are undefined."""
+    if L % BLOCK:
+        raise ValueError(f"L={L} is not a multiple of {BLOCK}")
+    dev = blocks.device
+    if dev.type == "cpu":
+        return gather_postings_arena(blocks, term_block_start, counts,
+                                     term_idx, L)
+    if dev.type != "cuda":
+        raise ValueError(f"no K1 kernel for device {dev}")
+    _check_int32("blocks", blocks, 2, dev)
+    _check_int32("term_block_start", term_block_start, 1, dev)
+    _check_int32("counts", counts, 1, dev)
+    _check_int32("term_idx", term_idx, 1, dev)
+    Q = term_idx.shape[0]
+    vals = torch.empty((Q, L), dtype=torch.int32, device=dev)
+    if Q:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.tpi_decode_postings(
+                blocks.data_ptr(), blocks.shape[1],
+                term_block_start.data_ptr(), counts.data_ptr(),
+                term_idx.data_ptr(), Q, L, vals.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "tpi_decode_postings")
+        decode_postings.launches += 1
+    return vals, counts[term_idx.to(torch.int64)]
+
+
+decode_postings.launches = 0  # K1 launches in this process

@@ -1,0 +1,129 @@
+"""Kernels K1 (decode) and K2 (fused AND) on the card against their plain
+torch versions, and the engine on CUDA against the engine on the CPU.
+
+Marked `gpu`: they need an NVIDIA card and nvcc and skip elsewhere. This
+file imports no `jax`, so on a machine without it run it with
+`python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`."""
+import numpy as np
+import pytest
+import torch
+
+from inverted_index_2_tpu_torch import QueryEngine
+from inverted_index_2_tpu_torch.models import query_engine as port_qe
+from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
+from inverted_index_2_tpu_torch.ops import cuda_decode, cuda_fused
+from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
+from inverted_index_2_tpu_torch.ops.cuda_fused import (
+    MAX_LEVEL,
+    fused_and,
+    fused_and_torch,
+    reorder_smallest_base,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K1/K2 are CUDA C++ built with nvcc "
+                    "and have no CPU mode")
+    return torch.device("cuda")
+
+
+def _corpus(seed, n_terms=300):
+    rng = np.random.default_rng(seed)
+    lists = []
+    for i in range(n_terms):
+        scale = (1, 100, 30_000, 2**24)[i % 4]   # block widths 0/8/16/32
+        n = int(rng.choice([1, 127, 128, 129, int(rng.integers(1, 5000))]))
+        g = rng.integers(1, 2 * scale + 1, size=n, dtype=np.int64)
+        start = int(rng.integers(0, 2**32 - 1))  # lists cross 2^32 and wrap
+        lists.append(np.unique(((start + np.cumsum(g)) % 2**32)
+                               .astype(np.uint32)))
+    lists.append(np.array([0, 7, 2**32 - 1], dtype=np.uint32))
+    voffs = np.zeros(len(lists) + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in lists], out=voffs[1:])
+    blob = b"".join(f"t{i:05d}".encode() for i in range(len(lists)))
+    offs = np.arange(len(lists) + 1, dtype=np.int64) * 6
+    return lists, build_host_tables(blob, offs, np.concatenate(lists), voffs)
+
+
+def _valid_equal(a, b, counts, L):
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    for q, c in enumerate(np.minimum(counts.cpu().numpy(), L)):
+        if not np.array_equal(a[q, :c], b[q, :c]):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("L,seed", [(128, 1), (2048, 1), (512, 2)])
+def test_decode_kernel_matches_plain(cuda, L, seed):
+    lists, t = _corpus(seed)
+    snap = upload_tables(t, device=cuda)
+    cpu = upload_tables(t, device="cpu")
+    idx = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, len(lists), size=1000).astype(np.int32))
+    before = cuda_decode.decode_postings.launches
+    kv, kc = cuda_decode.decode_postings(
+        snap.blocks, snap.term_block_start, snap.counts, idx.to(cuda), L)
+    torch.cuda.synchronize()
+    assert cuda_decode.decode_postings.launches == before + 1
+    pv, pc = gather_postings_arena(cpu.blocks, cpu.term_block_start,
+                                   cpu.counts, idx, L)
+    assert torch.equal(kc.cpu(), pc)
+    assert _valid_equal(kv, pv, pc, L)
+
+
+@pytest.mark.parametrize("L,K,seed", [(256, 8, 3), (2048, 8, 4),
+                                       (MAX_LEVEL, 8, 5), (512, 16, 6),
+                                       (2048, 2, 7)])
+def test_fused_kernel_matches_plain(cuda, L, K, seed):
+    lists, t = _corpus(seed)
+    snap = upload_tables(t, device=cuda)
+    rng = np.random.default_rng(seed)
+    Q = 512
+    idx = rng.integers(0, len(lists), size=(Q, K))
+    kv = rng.integers(1, K + 1, size=Q).astype(np.int32)
+    kmask = np.arange(K)[None, :] < kv[:, None]
+    rows = np.where(kmask, t.tbs[idx], 0).astype(np.int32)
+    cnts = np.where(kmask, t.counts[idx], 0).astype(np.int32)
+    cnts[::17, 1] = 0  # missing terms
+    rows, cnts, _ = reorder_smallest_base(
+        torch.from_numpy(rows), torch.from_numpy(cnts), torch.from_numpy(kv))
+    args = (rows.to(cuda), cnts.to(cuda), torch.from_numpy(kv).to(cuda), L)
+    out, oc = fused_and(snap.blocks, *args, compact=False)
+    pout, poc = fused_and_torch(snap.blocks, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(oc, poc) and torch.equal(out, pout)
+    assert int((oc > 0).sum()) > 0
+
+
+def test_engine_cuda_matches_cpu(cuda, monkeypatch):
+    lists, t = _corpus(5, n_terms=120)
+    terms = [f"t{i:05d}".encode() for i in range(len(lists))]
+    gpu = QueryEngine(upload_tables(t, device=cuda), L=256, device=cuda)
+    cpu = QueryEngine(upload_tables(t, device="cpu"), L=256, device="cpu")
+    rng = np.random.default_rng(6)
+    queries = [[terms[i] for i in rng.choice(len(terms), size=int(k))]
+               for k in rng.integers(1, 6, size=300)]
+    queries.append([terms[0], b"missing"])
+    k1, k2 = cuda_decode.decode_postings.launches, cuda_fused.fused_and.launches
+    for a, b in zip(gpu.boolean(queries, "and"), cpu.boolean(queries, "and")):
+        assert np.array_equal(a, b)
+    for a, b in zip(gpu.lookup(terms + [b"missing"]),
+                    cpu.lookup(terms + [b"missing"])):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    assert cuda_fused.fused_and.launches > k2
+    assert cuda_decode.decode_postings.launches > k1
+    # the stream with forced dedup, and bases above a lowered level cap
+    # served by the concat AND (torch ops on the card)
+    monkeypatch.setenv("TPI_STAGED_DEDUP", "force")
+    monkeypatch.setattr(port_qe, "MAX_LEVEL", 512)
+    stream = [queries[:150] * 2, queries[150:]]
+    for (gv, go), (cv, co) in zip(
+            gpu.boolean_staged(stream, "and", columnar=True),
+            cpu.boolean_staged(stream, "and", columnar=True)):
+        assert np.array_equal(go, co) and np.array_equal(gv, cv)
+    assert gpu.last_stream_stats["concat"] > 0
+    assert gpu.last_stream_stats["served_rows"] < 2 * len(queries)
