@@ -8,44 +8,63 @@ Phases; any failure raises and the script exits non-zero:
   1. the card: CUDA must be available; prints nvidia-smi's name and power
      limit;
   2. build: nvcc builds the kernels of inverted_index_2_tpu_torch/csrc
-     (kernel K1, posting decode; kernel K2, fused decode + AND);
-  3. each kernel against its plain torch version on the card, at the
-     slice's shapes (Q=8192 queries of up to 8 terms, L=2048, and the ladder
-     level 8192), bit-identical on valid prefixes, masked rows and counts;
-  4. a small engine check: an InvertedIndex built with put / put_removed /
-     merge, served by QueryEngine.from_index(..., device="cuda"), against a
-     numpy oracle (long lists, tombstones, misses, single-term queries,
-     ladder re-serves, small-P overflow);
-  5. the main path at a realistic size: the config-3 deployment of
-     BASELINE.md (Boolean AND of 2-8 terms, mean posting length 1k), cut
-     from 10M to --terms terms, served by boolean_staged(columnar=True,
-     depth=4) over 8 uniform batches of 8192 queries and a Zipf stream
-     (three timed passes each), plus one batch of 8192 lookups; sampled
-     results against the oracle, the kernels' launch counts from this
-     phase, and then one profiled pass of each stream (device busy share).
+     (kernel K1, posting decode; K2, fused decode + AND; K4, row sort), one
+     nvcc per source in parallel;
+  3. each kernel against its plain torch version on the card, bit-identical:
+     K1 and K2 at the AND slice's shapes (Q=8192 queries of up to 8 terms,
+     L=2048, and the ladder level 8192), K4 at the concat classes' chunk
+     shapes (16384, 1024) .. (256, 65536), at (64, 262144) and at one
+     padded width, with rows of 0xFFFFFFFF and 0x80000000; each timed with
+     CUDA events beside its plain version, torch.sort for K4, and its bound;
+  4. a small engine check: an InvertedIndex (the port's) built with put /
+     put_removed / merge, served by QueryEngine.from_index(...) on the card,
+     against a numpy oracle: lookup, AND, OR (with tombstones), prefix_p
+     pages for AND and OR, lookup_staged, ladder re-serves, small-P overflow
+     and queries beyond the largest concat class;
+  5. the main paths at a realistic size: the config-3 deployment of
+     BASELINE.md (Boolean queries of 2-8 terms, mean posting length 1k), cut
+     from 10M to --terms terms: boolean_staged AND (columnar, depth 4) over
+     8 uniform batches of 8192 queries and a Zipf stream, one batch of 8192
+     lookups, full-result OR over 2 uniform batches and 2 Zipf batches, OR
+     pages (prefix_p=32, depth 4) over the 8 uniform batches, and
+     lookup_staged over 4 batches of the queries' first terms; three timed
+     passes each, sampled results against the oracle, each path's kernel
+     launches, then one profiled pass of each stream (device busy share).
 The last line is {"ok": true, "device": {...}}; before it come one JSON
-line with each kernel's launches, error and time against its plain
-version, and nvidia-smi's name and power limit of the card.
+line with each kernel's launches, error, time against its plain version
+and the library call, and bound, and nvidia-smi's name and power limit of
+the card.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
+import math
 import subprocess
 import sys
 import tempfile
 import time
-
-# keep every merge of the host layers on the host C++ path: the device merge
-# of inverted_index_2_tpu (shard.py) would import jax
-os.environ["TPI_DEVICE_MERGE_MIN"] = str(1 << 62)
 
 import numpy as np
 
 L_MAIN = 2048
 BATCH = 8192
 N_BATCHES = 8
+PAGE_P = 32
+
+# the bound of a kernel: the larger of its bytes over the HBM rate and its
+# operations over the card's peak rate for their type (H100 SXM, NVIDIA's
+# data sheet: 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, the
+# table's rate for ALU work, taken for the integer compares and shifts)
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+
+# K4 at the concat classes' chunk shapes (one 2^24-element chunk per class
+# up to SB = 128, then SB = 512), a long row past shared memory, and the
+# pagination window W = P * K = 160 padded to 256
+SORT_SHAPES = ((16384, 1024), (4096, 4096), (2048, 8192), (1024, 16384),
+               (256, 65536), (64, 262144), (8192, 160))
+SORT_REPORTED = (2048, 8192)  # the modal class of config-3 OR (SB = 64)
 
 
 class SmokeError(RuntimeError):
@@ -88,6 +107,13 @@ def and_oracle(values, voffs, idxs):
     return out
 
 
+def or_oracle(values, voffs, idxs):
+    out = np.zeros(0, np.uint32)
+    for i in idxs:
+        out = np.union1d(out, values[voffs[i]:voffs[i + 1]])
+    return out.astype(np.uint32)
+
+
 def time_ms(torch, fn, reps: int) -> float:
     """Mean device time of fn() over `reps` calls, by CUDA events."""
     fn()
@@ -102,9 +128,22 @@ def time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes: float, ops: float):
+    """(bound ms, "bytes" or "operations")."""
+    b, o = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return (max(b, o) * 1e3, "bytes" if b >= o else "operations")
+
+
+def _blocks(counts, cap=None):
+    nb = -(-counts.astype(np.int64) // 128)
+    return nb if cap is None else np.minimum(nb, cap)
+
+
 def phase_kernels(torch, eng, terms_mat, uniform):
-    """Phase 3: K1 and K2 against their plain versions on the card."""
-    from inverted_index_2_tpu.codec import keys as keys_mod
+    """Phase 3: K1, K2 and K4 against their plain versions on the card.
+    Returns per kernel (max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
+    from inverted_index_2_tpu_torch.codec import keys as keys_mod
     from inverted_index_2_tpu_torch.models.steps import fused_rows
     from inverted_index_2_tpu_torch.ops import cuda_decode, cuda_fused
     from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
@@ -113,6 +152,7 @@ def phase_kernels(torch, eng, terms_mat, uniform):
 
     s = eng.snap
     dev = eng.device
+    stride = int(s.blocks.shape[1])
     res = {}
 
     # K1 at the lookup shape, then at the ladder level 4L for the longest
@@ -142,12 +182,18 @@ def phase_kernels(torch, eng, terms_mat, uniform):
             s.blocks, s.term_block_start, s.counts, ti, L), 20)
         p_ms = time_ms(torch, lambda: gather_postings_arena(
             s.blocks, s.term_block_start, s.counts, ti, L), 5)
+        # bytes: each block row a term needs read once, its 128 values
+        # written once, and the index, count and start of each term
+        nb = _blocks(pc.cpu().numpy(), L // 128)
+        b_ms, b_by = bound(nb.sum() * (stride * 4 + 512) + 12 * len(nb),
+                           2 * 128 * nb.sum())
         print(f"[phase 3] K1 decode Q={ti.shape[0]} L={L}: bit-identical "
               f"({int(valid.sum())} values), kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         errs.append(err)
-        times.append((k_ms, p_ms))
-    res["decode_postings"] = (max(errs), times[0][0], times[0][1])
+        times.append((k_ms, p_ms, b_ms, b_by))
+    res["decode_postings"] = (max(errs), times[0][0], times[0][1], None,
+                              times[0][2], times[0][3])
 
     # K2 on the first uniform batch, then on its longest bases at 4L
     qk, kv = eng._pack_boolean(eng._state, uniform[0])
@@ -172,20 +218,88 @@ def phase_kernels(torch, eng, terms_mat, uniform):
             s.blocks, *args, L, compact=False), 20)
         p_ms = time_ms(torch, lambda: cuda_fused.fused_and_torch(
             s.blocks, *args, L), 2)
-        print(f"[phase 3] K2 fused AND Q={args[0].shape[0]} K={args[0].shape[1]} "
-              f"L={L}: bit-identical ({int(kc.sum())} kept, "
+        # bytes: the base rows (up to L values) and every probe row read
+        # once, the masked (Q, L) output and counts written once, the
+        # (Q, K) rows and counts read once; operations: one binary search
+        # of log2(L) steps per probe value
+        c = args[1].cpu().numpy().astype(np.int64)
+        live = np.arange(c.shape[1])[None, :] < args[2].cpu().numpy()[:, None]
+        c = np.where(live, c, 0)
+        base_b = _blocks(c[:, 0], L // 128).sum()
+        probe_b = _blocks(c[:, 1:]).sum()
+        Q, K = c.shape
+        b_ms, b_by = bound((base_b + probe_b) * stride * 4 + Q * L * 4
+                           + Q * 4 + Q * K * 8,
+                           c[:, 1:].sum() * math.log2(L))
+        print(f"[phase 3] K2 fused AND Q={Q} K={K} L={L}: bit-identical "
+              f"({int(kc.sum())} kept, "
               f"{int((need > L).sum()) if L == L_MAIN else 0} bases > L), "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
         errs.append(err)
-        times.append((k_ms, p_ms))
-    res["fused_and"] = (max(errs), times[0][0], times[0][1])
+        times.append((k_ms, p_ms, b_ms, b_by))
+    res["fused_and"] = (max(errs), times[0][0], times[0][1], None,
+                        times[0][2], times[0][3])
+    res["sort_rows"] = phase_sort(torch, dev)
     return res
+
+
+def phase_sort(torch, dev):
+    """Phase 3, K4: bit-identical to its plain version at every shape in
+    SORT_SHAPES; timed beside the plain version and torch.sort."""
+    from inverted_index_2_tpu_torch.ops import cuda_sort
+    from inverted_index_2_tpu_torch.utils.u32 import flip
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    reported = None
+    for Q, M in SORT_SHAPES:
+        x = torch.randint(-2**31, 2**31, (Q, M), dtype=torch.int32,
+                          device=dev, generator=gen)
+        x[0] = -1                            # a row of 0xFFFFFFFF
+        x[1] = -2**31                        # a row of 0x80000000
+        x[2, ::3] = -1
+        x[2, 1::3] = -2**31
+        x[3] = torch.randint(0, 3, (M,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        got = cuda_sort.sort_rows(x)
+        want = cuda_sort.sort_rows_torch(x)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"K4 ({Q}, {M}): rows differ from the plain version")
+        check(bool((got[0] == -1).all()) and bool((got[1] == -2**31).all()),
+              f"K4 ({Q}, {M}): a constant row changed")
+        # the library call: one torch.sort of the same rows, in u32 order
+        # (on a uint32 view, or on the sign-flipped int32 bits where this
+        # build has no uint32 sort)
+        try:
+            xu = x.view(torch.uint32)
+            lib = torch.sort(xu, dim=1).values
+            check(torch.equal(lib.view(torch.int32), want),
+                  f"torch.sort ({Q}, {M}) on uint32 disagrees")
+            lib_call, lib_form = (lambda: torch.sort(xu, dim=1)), "uint32"
+        except (RuntimeError, TypeError, NotImplementedError):
+            xf = flip(x)
+            lib_call, lib_form = (lambda: torch.sort(xf, dim=1)), "flipped"
+        k_ms = time_ms(torch, lambda: cuda_sort.sort_rows(x), 10)
+        p_ms = time_ms(torch, lambda: cuda_sort.sort_rows_torch(x), 5)
+        l_ms = time_ms(torch, lib_call, 5)
+        Mp = cuda_sort.padded_width(M)
+        b_ms, b_by = bound(2 * Q * M * 4, Q * Mp * math.log2(Mp))
+        print(f"[phase 3] K4 sort_rows ({Q}, {M}) (kernel width {Mp}): "
+              f"bit-identical, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"torch.sort ({lib_form}) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        if (Q, M) == SORT_REPORTED:
+            reported = (0, k_ms, p_ms, l_ms, b_ms, b_by)
+        del x, got, want
+    torch.cuda.empty_cache()
+    return reported
 
 
 def phase_engine_small(torch, device):
     """Phase 4: the engine from an InvertedIndex against a numpy oracle."""
-    from inverted_index_2_tpu import InvertedIndex, to_slice
-    from inverted_index_2_tpu_torch import QueryEngine
+    from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine, to_slice
 
     rng = np.random.default_rng(11)
     vocab = [f"w{i:03d}".encode() for i in range(50)]
@@ -224,13 +338,18 @@ def phase_engine_small(torch, device):
                [b"late", b"common", b"w003"],
                [b"w004", b"w005", b"common"]]
 
-    def oracle(q):
-        if any(t not in host for t in q):
-            return np.zeros(0, np.uint32)
-        out = host[q[0]]
-        for t in q[1:]:
-            out = np.intersect1d(out, host[t])
-        return out
+    def oracle(q, op="and", fr=False):
+        sets = [host[t] for t in q if t in host]
+        if op == "or":
+            out = (np.unique(np.concatenate(sets)) if sets
+                   else np.zeros(0, np.uint32))
+        elif len(sets) < len(q):
+            out = np.zeros(0, np.uint32)
+        else:
+            out = sets[0]
+            for v in sets[1:]:
+                out = np.intersect1d(out, v)
+        return np.setdiff1d(out, removed) if fr else out
 
     want = [oracle(q) for q in queries]
     got = eng.boolean(queries, "and")
@@ -249,9 +368,36 @@ def phase_engine_small(torch, device):
     st = eng.last_stream_stats
     check(st["ladder_reserve"] >= 1 and st["small_p_overflow"] >= 1,
           f"phase 4 did not reach the follow-up classes: {st}")
-    print(f"[phase 4] engine from InvertedIndex: lookup, boolean and "
-          f"boolean_staged AND equal the oracle ({len(queries)} queries, "
-          f"{len(look)} lookups, follow-ups {st})")
+
+    # OR, pages and staged lookup; one class of 8 blocks, so every query
+    # over 1024 postings goes singly (the path beyond the largest class)
+    eng._SB_CLASSES = (8,)
+    orq = queries + [[b"common", b"late", b"missing"], [b"missing"]]
+    check(len(host[b"common"]) > 1024, "phase 4: no query reaches the singles")
+    for flt in (False, True):
+        w_or = [oracle(q, "or", flt) for q in orq]
+        for i, g in enumerate(eng.boolean(orq, "or", filter_removed=flt)):
+            check(np.array_equal(g, w_or[i]), f"OR query {i} fr={flt}")
+        vals, vo = eng.boolean_staged([orq], "or", flt, columnar=True)[0]
+        for i, w in enumerate(w_or):
+            check(np.array_equal(vals[vo[i]:vo[i + 1]], w),
+                  f"staged OR query {i} fr={flt}")
+        for op in ("and", "or"):
+            pv, pvo, pc = eng.boolean_staged([orq], op, flt, columnar=True,
+                                             prefix_p=4)[0]
+            for i, q in enumerate(orq):
+                w = oracle(q, op, flt)
+                check(pc[i] == len(w) and np.array_equal(
+                    pv[pvo[i]:pvo[i + 1]], w[:4]),
+                    f"{op} page of query {i} fr={flt}")
+    lk = eng.lookup_staged([look], columnar=True)[0]
+    for i, term in enumerate(look):
+        w = host.get(term, np.zeros(0, np.uint32))
+        check(np.array_equal(lk[0][lk[1][i]:lk[1][i + 1]], w),
+              f"lookup_staged {term!r}")
+    print(f"[phase 4] engine from InvertedIndex: lookup, AND, OR, pages and "
+          f"lookup_staged equal the oracle ({len(orq)} queries, "
+          f"{len(look)} lookups, AND follow-ups {st})")
 
 
 def zipf_stream(rng, n_terms, n_batches):
@@ -270,37 +416,64 @@ def uniform_stream(rng, n_terms, n_batches):
              for _ in range(BATCH)] for _ in range(n_batches)]
 
 
-def run_stream(eng, values, voffs, term_bytes, stream, name, reps=3):
+def run_stream(eng, values, voffs, term_bytes, stream, name, op="and",
+               prefix_p=0, depth=4, lookup=False, reps=3):
     """Serve one stream `reps` times after a warm pass; check a sample of
-    the last pass against the oracle. Returns the QPS of each pass."""
-    batches = [[[term_bytes[i] for i in q] for q in b] for b in stream]
-    eng.boolean_staged(batches[:1], "and", columnar=True, depth=4)  # warm
+    the last pass against the oracle. stream: batches of queries (term
+    index arrays), or of term indexes with lookup=True. Returns the byte
+    batches and the median QPS."""
+    if lookup:
+        batches = [[term_bytes[i] for i in b] for b in stream]
+
+        def serve(bs):
+            return eng.lookup_staged(bs, columnar=True, depth=depth)
+    else:
+        batches = [[[term_bytes[i] for i in q] for q in b] for b in stream]
+
+        def serve(bs):
+            return eng.boolean_staged(bs, op, columnar=True, depth=depth,
+                                      prefix_p=prefix_p)
+    serve(batches[:1])  # warm
     nq = sum(len(b) for b in batches)
     qps = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = eng.boolean_staged(batches, "and", columnar=True, depth=4)
+        out = serve(batches)
         qps.append(nq / (time.perf_counter() - t0))
-    stats = dict(eng.last_stream_stats)
-    check(stats["queries"] == nq, f"{name}: served {stats['queries']} of {nq}")
+    stats = ""
+    if op == "and" and not prefix_p and not lookup:
+        st = dict(eng.last_stream_stats)
+        check(st["queries"] == nq, f"{name}: served {st['queries']} of {nq}")
+        stats = f"; follow-ups {st}"
     rng = np.random.default_rng(23)
     checked = 0
     for bi in range(len(batches)):
-        vals, vo = out[bi]
+        vals, vo = out[bi][0], out[bi][1]
         check(len(vo) == len(batches[bi]) + 1, f"{name}: batch {bi} shape")
         for qi in rng.choice(len(batches[bi]), size=64, replace=False):
-            want = and_oracle(values, voffs, stream[bi][qi])
-            check(np.array_equal(vals[vo[qi]:vo[qi + 1]], want),
+            if lookup:
+                i = stream[bi][qi]
+                want = values[voffs[i]:voffs[i + 1]]
+            elif op == "and":
+                want = and_oracle(values, voffs, stream[bi][qi])
+            else:
+                want = or_oracle(values, voffs, stream[bi][qi])
+            got = vals[vo[qi]:vo[qi + 1]]
+            if prefix_p:
+                check(out[bi][2][qi] == len(want),
+                      f"{name}: batch {bi} query {qi} count differs")
+                want = want[:prefix_p]
+            check(np.array_equal(got, want),
                   f"{name}: batch {bi} query {qi} differs from the oracle")
             checked += 1
     nres = sum(len(o[0]) for o in out)
     print(f"[phase 5] {name}: {nq} queries per pass, QPS of {reps} passes "
-          f"{[round(q, 1) for q in qps]}; {nres} result values; follow-ups "
-          f"{stats}; {checked} sampled queries equal the oracle")
+          f"{[round(q, 1) for q in qps]}; {nres} result values{stats}; "
+          f"{checked} sampled queries equal the oracle")
     return batches, sorted(qps)[len(qps) // 2]
 
 
-def profile_stream(torch, eng, batches, name):
+def profile_stream(torch, serve, name):
     """Device busy share of one stream pass: the summed time of the kernels
     and copies on the card over the pass's wall time (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -309,7 +482,7 @@ def profile_stream(torch, eng, batches, name):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.boolean_staged(batches, "and", columnar=True, depth=4)
+        serve()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -369,7 +542,8 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    from inverted_index_2_tpu_torch.ops import _build, cuda_decode, cuda_fused
+    from inverted_index_2_tpu_torch.ops import (
+        _build, cuda_decode, cuda_fused, cuda_sort)
 
     t0 = time.perf_counter()
     _build.library()
@@ -389,45 +563,94 @@ def main(argv=None) -> int:
     kern = phase_kernels(torch, eng, terms_mat, uniform_b)
     phase_engine_small(torch, "cuda")
 
-    # phase 5: the main path; count only its kernel launches
+    # phase 5: the main paths; each path's kernel launches are counted from
+    # 0 just before it and read just after
+    counters = {"decode_postings": cuda_decode.decode_postings,
+                "fused_and": cuda_fused.fused_and,
+                "sort_rows": cuda_sort.sort_rows}
+    launches = {name: 0 for name in counters}
+    per_path = {}
+
+    def drive(path, fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {name: c.launches for name, c in counters.items()}
+        per_path[path] = got
+        for name, n in got.items():
+            launches[name] += n
+        return out
+
     torch.cuda.reset_peak_memory_stats()
-    cuda_decode.decode_postings.launches = 0
-    cuda_fused.fused_and.launches = 0
-    ub, qps_u = run_stream(eng, values, voffs, term_bytes, uniform, "uniform")
-    zb, qps_z = run_stream(eng, values, voffs, term_bytes, zipf, "zipf")
+    ub, qps_u = drive("and uniform", lambda: run_stream(
+        eng, values, voffs, term_bytes, uniform, "AND uniform"))
+    zb, qps_z = drive("and zipf", lambda: run_stream(
+        eng, values, voffs, term_bytes, zipf, "AND zipf"))
     pick = np.random.default_rng(args.seed + 2).choice(
         len(terms_mat), size=BATCH, replace=False)
     t0 = time.perf_counter()
-    got = eng.lookup([term_bytes[i] for i in pick])
+    got = drive("lookup", lambda: eng.lookup([term_bytes[i] for i in pick]))
     dt = time.perf_counter() - t0
     for j in np.random.default_rng(3).choice(BATCH, size=512, replace=False):
         i = pick[j]
         check(np.array_equal(got[j], values[voffs[i]:voffs[i + 1]]),
               f"lookup of term {i} differs from the corpus")
     n_long = int((np.diff(voffs)[pick] > L_MAIN).sum())
-    launches = {"decode_postings": cuda_decode.decode_postings.launches,
-                "fused_and": cuda_fused.fused_and.launches}
     print(f"[phase 5] lookup: {BATCH} terms in {dt:.4f} s ({n_long} longer "
           f"than L re-served); 512 sampled lists equal the corpus")
-    print(f"[phase 5] median QPS uniform {qps_u:.1f}, zipf {qps_z:.1f}, "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes, "
-          f"kernel launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
-    profile_stream(torch, eng, ub, "uniform")
-    profile_stream(torch, eng, zb, "zipf")
+    orb, qps_or = drive("or uniform", lambda: run_stream(
+        eng, values, voffs, term_bytes, uniform[:2], "OR uniform", op="or"))
+    orzb, qps_orz = drive("or zipf", lambda: run_stream(
+        eng, values, voffs, term_bytes, zipf[:2], "OR zipf", op="or"))
+    pgb, qps_pg = drive("or pages", lambda: run_stream(
+        eng, values, voffs, term_bytes, uniform, f"OR pages P={PAGE_P}",
+        op="or", prefix_p=PAGE_P, depth=4))
+    first_terms = [[q[0] for q in b] for b in uniform[:4]]
+    lkb, qps_lk = drive("lookup_staged", lambda: run_stream(
+        eng, values, voffs, term_bytes, first_terms, "lookup_staged",
+        lookup=True, depth=3))
+    print(f"[phase 5] median QPS: AND uniform {qps_u:.1f}, AND zipf "
+          f"{qps_z:.1f}, OR uniform {qps_or:.1f}, OR zipf {qps_orz:.1f}, "
+          f"OR pages {qps_pg:.1f}, lookup_staged {qps_lk:.1f}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    print(f"[phase 5] kernel launches per path {per_path}; total {launches}")
+    for path, name in (("and uniform", "fused_and"), ("lookup",
+                                                      "decode_postings"),
+                       ("or uniform", "sort_rows"), ("or zipf", "sort_rows"),
+                       ("or pages", "sort_rows"),
+                       ("lookup_staged", "sort_rows")):
+        check(per_path[path][name] > 0,
+              f"the {path} path never launched {name}")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        ub, "and", columnar=True, depth=4), "AND uniform")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        zb, "and", columnar=True, depth=4), "AND zipf")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        orb, "or", columnar=True, depth=4), "OR uniform")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        orzb, "or", columnar=True, depth=4), "OR zipf")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        pgb, "or", columnar=True, depth=4, prefix_p=PAGE_P), "OR pages")
+    profile_stream(torch, lambda: eng.lookup_staged(
+        lkb, columnar=True, depth=3), "lookup_staged")
 
     src = "inverted_index_2_tpu_torch/csrc/"
     meta = {"decode_postings": (src + "decode_postings.cu",
                                 "inverted_index_2_tpu/ops/pallas_decode.py:81"),
             "fused_and": (src + "fused_and.cu",
-                          "inverted_index_2_tpu/ops/pallas_fused.py:380")}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": meta[name][0],
-         "replaces": meta[name][1], "launches": launches[name],
-         "max_abs_err": kern[name][0], "ms": kern[name][1],
-         "plain_ms": kern[name][2]} for name in ("decode_postings",
-                                                 "fused_and")]}))
+                          "inverted_index_2_tpu/ops/pallas_fused.py:380"),
+            "sort_rows": (src + "sort_rows.cu",
+                          "inverted_index_2_tpu/ops/pallas_sort.py:86")}
+    rows = []
+    for name in ("decode_postings", "fused_and", "sort_rows"):
+        err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]
+        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
+                     "replaces": meta[name][1], "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, "lib_ms": lib_ms})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,28 +1,44 @@
-"""inverted_index_2_tpu_torch — the PyTorch/CUDA port of the device half of
-inverted_index_2_tpu.
+"""inverted_index_2_tpu_torch — the PyTorch/CUDA port of inverted_index_2_tpu.
 
 The host half (the LSM index on disk: InvertedIndex, shards, segments,
-codecs, iterators, tombstones) does not touch an accelerator and is imported
-from `inverted_index_2_tpu` unchanged. This package ports the device half:
-frozen snapshots as torch tensors on an explicit device, batched exact
-lookup, and batched AND serving, with the posting-block decode (K1) and the
-fused decode+AND (K2) as CUDA C++ kernels for Hopper (`csrc/`).
+codecs, iterators, tombstones) does not touch an accelerator. The port keeps
+its own copy of it (inverted_index.py, shard.py, iterators.py,
+removed_list.py, evictable_pool.py, segment/, codec/, utils/ragged.py) with
+the same on-disk formats, so each package opens a directory the other
+wrote; every merge runs on the host. The shared C++ codec loads from the
+repository's top-level native/ directory.
+
+The device half serves frozen snapshots as torch tensors: batched exact
+lookup, AND, OR, pagination and staged lookup, with the posting-block
+decode (K1), the fused decode+AND (K2) and the row sort (K4) as CUDA C++
+kernels for Hopper (`csrc/`).
 
 Module names follow the JAX package's, so each counterpart is easy to find.
-Nothing here imports `jax`.
+Nothing here imports `jax` or `inverted_index_2_tpu`.
 
 Public surface:
-    QueryEngine.from_index(index, L, device=...)
-    QueryEngine(snapshot, L, tables=..., device=...)
+    InvertedIndex(basedir) .put/.read/.prefix_search/.put_removed/.merge
+    QueryEngine.from_index(index, L, device="cuda")
+    QueryEngine(snapshot, L, tables=..., device="cuda")
         .lookup(terms, filter_removed)
-        .boolean(queries, "and", filter_removed)
-        .boolean_staged(batches, "and", columnar=...)
+        .lookup_staged(batches, columnar=..., prefix_p=...)
+        .boolean(queries, "and" | "or", filter_removed)
+        .boolean_staged(batches, "and" | "or", columnar=..., prefix_p=...)
     build_host_tables, snapshot_tables, upload_tables, IndexSnapshot,
     HostTables (models/snapshot.py)
 """
 
-from inverted_index_2_tpu import InvertedIndex
-
+from .evictable_pool import Pool
+from .inverted_index import InvertedIndex
+from .iterators import (
+    ClosingIterator,
+    MergingIterator,
+    SequentialDynamicIterator,
+    TermValues,
+    compare_term_values,
+    merge_term_values,
+    to_slice,
+)
 from .models.query_engine import QueryEngine
 from .models.snapshot import (
     HostTables,
@@ -31,9 +47,23 @@ from .models.snapshot import (
     snapshot_tables,
     upload_tables,
 )
+from .removed_list import RemovedLists, unserialize_removed_list
+from .shard import Shard, shard_key
 
 __all__ = [
     "InvertedIndex",
+    "Shard",
+    "shard_key",
+    "TermValues",
+    "merge_term_values",
+    "compare_term_values",
+    "MergingIterator",
+    "SequentialDynamicIterator",
+    "ClosingIterator",
+    "to_slice",
+    "RemovedLists",
+    "unserialize_removed_list",
+    "Pool",
     "QueryEngine",
     "HostTables",
     "IndexSnapshot",

@@ -1,20 +1,25 @@
 """Batched query serving over a frozen snapshot on a torch device
-(counterpart of models/query_engine.py; main tier, lookup and AND only).
+(counterpart of models/query_engine.py; main tier).
 
-The main path: QueryEngine.from_index(index, L, device=...) freezes the
-index into compact host tables, uploads them (one gather expands the block
-arena), and serves
-    lookup(terms)                 resolve -> K1 decode -> ladder re-serve
-    boolean(queries, "and")       resolve -> reorder -> K2 fused AND
-    boolean_staged(batches, "and") the same, depth-pipelined (staged.py)
+QueryEngine.from_index(index, L) freezes the index into compact host
+tables, uploads them to the card (one gather expands the block arena), and
+serves
+    lookup(terms)                   resolve -> K1 decode -> ladder re-serve
+    boolean(queries, "and")         resolve -> reorder -> K2 fused AND
+    boolean(queries, "or")          the concat classes (below)
+    boolean_staged(batches, op)     the same, depth-pipelined (staged.py)
+    lookup_staged(batches)          single-term OR through the concat stream
 Lists longer than the fast-path pad L are re-served exactly at the
 smallest ladder level (4L, 16L, ...) that fits; a base list above the
-largest level K2 takes (cuda_fused.MAX_LEVEL) goes to the concat AND.
+largest level K2 takes (cuda_fused.MAX_LEVEL) goes to the concat AND. The
+concat classes (ops/concat_bool.py) size each query by its total postings
+and sort through K4; they serve OR, pagination (prefix_p) and staged
+lookup. OR serves on the device: the JAX engine's host route is ROADMAP
+queue 1 item 7.
 
 What the JAX engine does beyond this slice raises NotImplementedError that
-names its ROADMAP item: OR and pagination (queue 1 item 5), the delta tier
-and refresh (item 6), the host route (item 7), prefix and range reads,
-checkpoints and warmup (item 8).
+names its ROADMAP item: the delta tier and refresh (item 6), the host route
+(item 7), prefix and range reads, checkpoints and warmup (item 8).
 """
 from __future__ import annotations
 
@@ -25,17 +30,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from inverted_index_2_tpu.codec import keys as keys_mod
-
-from ..ops.concat_bool import boolean_concat_and_step, resolve_step
+from ..codec import keys as keys_mod
 from ..ops.cuda_fused import MAX_LEVEL
-from ..ops.setops import filter_removed as _filter_removed
 from ..utils.u32 import to_device, to_numpy_u32
 from .snapshot import HostTables, IndexSnapshot, snapshot_tables, upload_tables
 from .staged import StagedStreamsMixin
 from .steps import (
     _RESERVE_BUDGET,
-    _host_resolve_sb,
     _ladder,
     _narrow_keys,
     _not_ported,
@@ -70,9 +71,9 @@ class ServingState:
 
 
 class QueryEngine(StagedStreamsMixin):
-    """Batched lookup and AND serving over a frozen IndexSnapshot on
-    `device`. L is the fast-path pad: longer lists re-serve exactly at a
-    ladder level."""
+    """Batched lookup, AND and OR serving over a frozen IndexSnapshot on
+    `device` (the card unless the caller asks for the CPU). L is the
+    fast-path pad: longer lists re-serve exactly at a ladder level."""
 
     # one-shot boolean() batches at least this large go through the staged
     # stream (same contract, pipelined)
@@ -86,7 +87,7 @@ class QueryEngine(StagedStreamsMixin):
     _STAGED_SMALL_P = 8
 
     def __init__(self, snapshot: IndexSnapshot, L: int = 1024,
-                 tables: Optional[HostTables] = None, *, device):
+                 tables: Optional[HostTables] = None, *, device="cuda"):
         want = torch.device(device)
         have = snapshot.device
         if want.type not in ("cuda", "cpu"):
@@ -103,9 +104,10 @@ class QueryEngine(StagedStreamsMixin):
 
     @classmethod
     def from_index(cls, index, L: int = 1024, apply_removed: bool = False,
-                   keep_tables: bool = True, *, device):
+                   keep_tables: bool = True, *, device="cuda"):
         """Freeze `index` and serve it on `device`. keep_tables retains the
-        compact host tables (the concat AND then resolves on the host)."""
+        compact host tables (the concat classes then resolve on the
+        host)."""
         t = snapshot_tables(index, apply_removed=apply_removed)
         return cls(upload_tables(t, device=device), L=L,
                    tables=t if keep_tables else None, device=device)
@@ -154,9 +156,6 @@ class QueryEngine(StagedStreamsMixin):
 
     def boolean_host(self, *a, **kw):
         _not_ported("QueryEngine.boolean_host (host route)", 7)
-
-    def lookup_staged(self, *a, **kw):
-        _not_ported("QueryEngine.lookup_staged (concat stream)", 5)
 
     # -- exact lookup ------------------------------------------------------
 
@@ -266,10 +265,11 @@ class QueryEngine(StagedStreamsMixin):
 
     def boolean(self, queries: Sequence[Sequence[bytes]], op: str,
                 filter_removed: bool = False):
-        """Batch of AND queries of 1..K terms -> sorted unique arrays. A
-        missing term empties its query. Exact at any list length."""
-        if op != "and":
-            _not_ported(f"boolean op {op!r}", 5)
+        """Batch of AND/OR queries of 1..K terms -> sorted unique arrays. A
+        missing term empties an AND query and adds nothing to an OR query.
+        Exact at any list length."""
+        if op not in ("and", "or"):
+            raise ValueError(f"op {op!r}: want 'and' or 'or'")
         if not queries:
             return []
         st = self._state
@@ -280,7 +280,9 @@ class QueryEngine(StagedStreamsMixin):
             return [np.zeros(0, np.uint32) for _ in queries]
         qk, kv = self._pack_boolean(st, queries)
         removed = st.snap.removed if filter_removed else None
-        return self._boolean_fused(st, queries, qk, kv, removed)
+        if op == "and":
+            return self._boolean_fused(st, queries, qk, kv, removed)
+        return self._boolean_concat(st, queries, qk, kv, op, removed)
 
     def _fused_run(self, st, lv, qk_sub, kv_sub, removed, small_p: int = 0):
         s = st.snap
@@ -309,14 +311,15 @@ class QueryEngine(StagedStreamsMixin):
             self.L, self._staged_levels(st), removed, s.hash_slots,
             s.max_probes, self._STAGED_SMALL_P)
 
-    def _dedup_batch(self, nq: int, qk, kv):
-        """Cross-query dedup for a staged AND batch: group identical packed
+    def _dedup_batch(self, nq: int, qk, kv, row_cost_us: float = None):
+        """Cross-query dedup for a staged batch: group identical packed
         rows on the host, serve each distinct query once, and fan results
         out through `inv` at assembly. Returns (nu, qk_u, kv_u, inv), inv
         None when dedup does not pay (fewer than 64 queries,
         TPI_STAGED_DEDUP=0, or too few duplicates to shrink the batch by a
         grid step of batch/16 rows; TPI_STAGED_DEDUP=force skips the cost
-        gate, never the shrink check)."""
+        gate, never the shrink check). row_cost_us replaces the fused AND's
+        per-row cost (L x 0.003 us) for the concat stream's rows."""
         mode = os.environ.get("TPI_STAGED_DEDUP", "1")
         if nq < 64 or mode == "0":
             return nq, qk, kv, None
@@ -331,9 +334,11 @@ class QueryEngine(StagedStreamsMixin):
         if target >= _round_up(nq, grid):
             return nq, qk, kv, None
         saved_rows = _round_up(nq, grid) - target
-        # cost gate: the JAX engine's constants (saved rows x L x 0.003
-        # against 4000), carried over unmeasured on the card (PERF.md)
-        if mode != "force" and saved_rows * self.L * 0.003 < 2 * 2000.0:
+        # cost gate: the JAX engine's constants (saved rows x L x 0.003,
+        # or row_cost_us, against 4000), carried over unmeasured on the
+        # card (PERF.md)
+        rc = row_cost_us if row_cost_us is not None else self.L * 0.003
+        if mode != "force" and saved_rows * rc < 2 * 2000.0:
             return nq, qk, kv, None
         order = np.argsort(h, kind="stable")
         sc = comb[order]
@@ -456,64 +461,3 @@ class QueryEngine(StagedStreamsMixin):
                              setter, wide, longs, overs)
         self._fused_followups(st, setter, wide, longs, overs, removed)
         return results
-
-    # size classes of the concat AND: total-block budgets per query
-    _SB_CLASSES = (8, 32, 64, 128, 512, 2048, 8192, 32768)
-
-    def _boolean_concat(self, st, queries, qk, kv, op: str, removed):
-        """Exact AND sized by each query's real total postings: resolve,
-        group queries into total-block classes, then one concat-decode +
-        sort + run-length pass per class. Fetches each class's rows trimmed
-        to its largest result."""
-        if op != "and":
-            _not_ported(f"concat {op!r}", 5)
-        s = st.snap
-        nq = len(queries)
-        if st.host_ready():
-            idxs, cnt, _ = _host_resolve_sb(st.tables, qk)
-            idx_h, found_h = np.maximum(idxs, 0), idxs >= 0
-            sb_q = np.minimum(-(-cnt[:nq] // 128), 1 << 30).sum(axis=1)
-        else:
-            idx, found, raw = resolve_step(
-                s.keys, s.counts, self._dev(_narrow_keys(qk, s.width)),
-                s.hash_slots, s.max_probes)
-            idx_h = idx.cpu().numpy()
-            found_h = found.cpu().numpy()
-            raw_h = raw.cpu().numpy().astype(np.int64)
-            sb_q = np.minimum(-(-raw_h[:nq] // 128), 1 << 30).sum(axis=1)
-        results: List[Optional[np.ndarray]] = [None] * nq
-        order = np.argsort(sb_q, kind="stable")
-        stride = int(s.blocks.shape[1])
-        pos = 0
-        for SB in self._SB_CLASSES:
-            hi = int(np.searchsorted(sb_q[order], SB, side="right"))
-            self._concat_class(s, order[pos:hi], SB, stride, idx_h, found_h,
-                               kv, removed, results)
-            pos = hi
-        # queries beyond the largest class: one at a time at their exact
-        # block budget
-        for qi in order[pos:]:
-            self._concat_class(s, np.array([qi]),
-                               _round_up(int(sb_q[qi]), 8), stride, idx_h,
-                               found_h, kv, removed, results)
-        return results
-
-    def _concat_class(self, s, members, SB, stride, idx_h, found_h, kv,
-                      removed, results):
-        """Serve `members` (query indexes) at block budget SB, in chunks
-        whose decoded rows stay within the reserve budget."""
-        qb = max(8, (_RESERVE_BUDGET // (SB * max(stride, 128))) // 8 * 8)
-        for c0 in range(0, len(members), qb):
-            batch = members[c0: c0 + qb]
-            out, oc = boolean_concat_and_step(
-                s.blocks, s.term_block_start, s.counts,
-                torch.from_numpy(idx_h[batch].astype(np.int64)).to(
-                    self.device),
-                torch.from_numpy(found_h[batch]).to(self.device),
-                self._dev(kv[batch].astype(np.int32)), SB)
-            if removed is not None and removed.shape[0] > 0:
-                out, oc = _filter_removed(out, oc, removed)
-            oc = oc.cpu().numpy()
-            out = to_numpy_u32(out[:, : max(1, int(oc.max(initial=0)))])
-            for j, qi in enumerate(batch):
-                results[qi] = out[j, : oc[j]].copy()

@@ -3,8 +3,8 @@ models/snapshot.py): the device tensors (IndexSnapshot), the compact host
 tables (HostTables), and the freeze path from a live InvertedIndex.
 
 The host halves (build_host_tables, snapshot_tables) are copies of the
-numpy code in inverted_index_2_tpu/models/snapshot.py, whose module imports
-`jax`; the layout they produce is the same, bit for bit.
+numpy code in the JAX package's models/snapshot.py; the layout they produce
+is the same, bit for bit.
 """
 from __future__ import annotations
 
@@ -14,12 +14,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from inverted_index_2_tpu.codec import hashing
-from inverted_index_2_tpu.codec import keys as keys_mod
-from inverted_index_2_tpu.codec import native as native_mod
-from inverted_index_2_tpu.codec import packing
-from inverted_index_2_tpu.shard import merge_views
-
+from ..codec import hashing
+from ..codec import keys as keys_mod
+from ..codec import native as native_mod
+from ..codec import packing
+from ..segment.registry import Segments
+from ..shard import merge_views
+from ..utils.ragged import ragged_gather
 from ..utils.u32 import to_device
 
 # Arena row pitch, in words. Rows start 16-byte aligned at a cost of at most
@@ -165,7 +166,7 @@ def arena_stride(t: HostTables) -> int:
     return -(-stride // STRIDE_ALIGN) * STRIDE_ALIGN
 
 
-def upload_tables(t: HostTables, *, device) -> IndexSnapshot:
+def upload_tables(t: HostTables, *, device="cuda") -> IndexSnapshot:
     """Materialize host tables on `device`: ship the compressed words and
     block offsets, then expand the (B, stride) block arena with one row
     gather on the device (row i = words[flat[i] : flat[i] + stride])."""
@@ -214,8 +215,6 @@ def _purge_merged(merged, removed: np.ndarray):
         return None
     lens = np.diff(offsets)[nz]
     starts = offsets[:-1][nz]
-    from inverted_index_2_tpu.utils.ragged import ragged_gather
-
     blob_arr = (np.frombuffer(blob, dtype=np.uint8)
                 if isinstance(blob, bytes) else blob)
     nb, _ = ragged_gather(blob_arr, starts, lens)
@@ -231,8 +230,6 @@ def snapshot_tables(index, apply_removed: bool = False,
     """Freeze an InvertedIndex into compact host tables: pin every segment
     of every shard, merge them logically (Read(nil, nil) semantics), and
     encode the postings with the arena codec."""
-    from inverted_index_2_tpu.segment.registry import Segments
-
     views, pinned_all, removed_parts = [], [], []
     for sh in index._snapshot():
         pinned = sh.segments.pin_all()

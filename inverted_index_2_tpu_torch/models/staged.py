@@ -1,10 +1,14 @@
-"""Depth-pipelined AND stream serving (counterpart of the fused branch of
-models/staged.py::boolean_staged), mixed into QueryEngine.
+"""Depth-pipelined stream serving (counterpart of models/staged.py), mixed
+into QueryEngine.
 
 Batch i+depth is packed and launched before batch i's results are read:
 the device-to-host copies of each batch go into pinned buffers with
 non_blocking copies behind the batch's kernels, and harvest waits on the
-CUDA event recorded after them, so host packing overlaps device work.
+CUDA event recorded after them, so host packing overlaps device work. Two
+streams:
+  * AND: the fused stream through K2 (the main branch of boolean_staged);
+  * OR, pagination (prefix_p) and lookup_staged: the concat-class stream
+    (_staged_concat_stream), whose row and compaction sorts run through K4.
 """
 from __future__ import annotations
 
@@ -14,7 +18,25 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .steps import _batch_as_lists, _not_ported, _rows_to_columnar
+from ..ops.setops import filter_removed as _filter_removed
+from ..utils.u32 import to_numpy_u32
+from .steps import (
+    _RESERVE_BUDGET,
+    _batch_as_lists,
+    _concat_bool_sel_step,
+    _dedup_adjacent,
+    _host_resolve_sb,
+    _narrow_keys,
+    _pack_p_step,
+    _resolve_sb_step,
+    _round_up,
+    _rows_to_columnar,
+    _scatter_p_step,
+    _split_idx_step,
+    _wire_meta_step,
+    _wire_pack_step,
+    _wire_unpack,
+)
 
 
 def _start_host_copy(tensors):
@@ -39,37 +61,66 @@ def _finish_host_copy(pending):
     return [h.numpy() for h in hosts]
 
 
+def _empty_result(columnar: bool, P: int):
+    if not columnar:
+        return []
+    empty = (np.zeros(0, np.uint32), np.zeros(1, np.int64))
+    return empty + (np.zeros(0, np.int64),) if P else empty
+
+
 class StagedStreamsMixin:
-    """Pipelined AND streams; mixed into QueryEngine."""
+    """Pipelined stream serving and the concat classes; mixed into
+    QueryEngine."""
+
+    # size classes of the concat path: total-block budgets per query (the
+    # JAX engine's ladder, kept as the contract; not re-measured on the card)
+    _SB_CLASSES = (8, 32, 64, 128, 512, 2048, 8192, 32768)
+
+    def lookup_staged(self, batches, filter_removed: bool = False,
+                      depth: int = 3, columnar: bool = False,
+                      prefix_p: int = 0):
+        """Pipelined stream lookup: `batches` is an iterable of term lists.
+        Each term serves as a single-term OR query through the concat-class
+        stream on the device (exact at any posting length: classes size by
+        true counts), and each batch returns what boolean_staged returns
+        (rows, a columnar pair, or the pagination triple with prefix_p).
+        Misses give count-0 results instead of lookup()'s None."""
+        st = self._state
+        return self.boolean_staged(
+            [[[t] for t in b] for b in batches], "or", filter_removed, depth,
+            columnar, prefix_p, _st=st)
 
     def boolean_staged(self, batches, op: str = "and",
                        filter_removed: bool = False, depth: int = 3,
                        columnar: bool = False, prefix_p: int = 0,
                        _st=None):
-        """Serve a stream of AND batches with `depth` batches in flight.
-        Per-batch results equal boolean()'s. The rare follow-ups (small-P
-        overflow, ladder re-serves, bases beyond the level cap) are
-        deferred and served once for the whole stream.
+        """Serve a stream of AND or OR batches with `depth` batches in
+        flight. Per-batch results equal boolean()'s. AND streams through
+        K2; the rare follow-ups (small-P overflow, ladder re-serves, bases
+        beyond the level cap) are deferred and served once for the whole
+        stream. OR and any prefix_p stream through the concat classes.
 
         batches: iterable of batches, each a sequence of term lists or a
         columnar (blob, offsets[T+1], qoffs[Q+1]) triple. columnar=False
         returns one list of arrays per batch; columnar=True one (values,
-        voffs[n+1]) pair per batch. Afterwards `last_stream_stats` counts
-        the stream's queries, the rows served after dedup, and each
-        follow-up class."""
-        if op != "and":
-            _not_ported(f"boolean_staged op {op!r}", 5)
-        if prefix_p:
-            _not_ported("boolean_staged prefix_p (pagination)", 5)
+        voffs[n+1]) pair per batch. prefix_p > 0 (requires columnar) is
+        pagination: each batch returns (values, voffs, counts) with only
+        the first min(count, prefix_p) results per query and the true
+        counts. Afterwards `last_stream_stats` counts the AND stream's
+        queries, the rows served after dedup, and each follow-up class."""
+        if op not in ("and", "or"):
+            raise ValueError(f"op {op!r}: want 'and' or 'or'")
+        if prefix_p and not columnar:
+            raise ValueError("prefix_p requires columnar=True")
         batches = list(batches)
         st = _st if _st is not None else self._state
         removed = st.snap.removed if filter_removed else None
         if st.snap.n_terms == 0:
-            out = []
-            for b in batches:
-                rows = self.boolean(_batch_as_lists(b), op, filter_removed)
-                out.append(_rows_to_columnar(rows) if columnar else rows)
-            return out
+            return [self._empty_index_batch(b, op, filter_removed, columnar,
+                                            prefix_p) for b in batches]
+        if op != "and" or prefix_p:
+            return self._staged_concat_stream(st, batches, op, removed,
+                                              depth, columnar, prefix_p)
         P = self._STAGED_SMALL_P
         levels_h = self._levels(st)
         fetched: List = [None] * len(batches)
@@ -123,14 +174,23 @@ class StagedStreamsMixin:
         return [self._assemble(fetched[bi], overrides.get(bi, {}), P,
                                columnar) for bi in range(len(batches))]
 
+    def _empty_index_batch(self, b, op, filter_removed, columnar, prefix_p):
+        """One batch over an empty index: every result is empty."""
+        rows = self.boolean(_batch_as_lists(b), op, filter_removed)
+        if not columnar:
+            return rows
+        vals, voffs = _rows_to_columnar(rows)
+        if prefix_p:
+            return vals, voffs, np.zeros(len(rows), dtype=np.int64)
+        return vals, voffs
+
     @staticmethod
     def _assemble(f, ovr, P: int, columnar: bool):
         """One batch's results from its small-P fetch plus the follow-up
         overrides (keyed by served row), fanned out to duplicates."""
         nq, inv, nu, got = f
         if nq == 0:
-            return ((np.zeros(0, np.uint32), np.zeros(1, np.int64))
-                    if columnar else [])
+            return _empty_result(columnar, 0)
         small, oc8, code = got
         oc = oc8.astype(np.int32)
         normal = code[:nu] == 0
@@ -164,3 +224,263 @@ class StagedStreamsMixin:
             elif normal[u]:
                 rows[i] = small[u, : oc[u]].copy()
         return rows
+
+    # -- the concat classes -------------------------------------------------
+
+    def _dispatch_classes(self, s, sb_q, idx_dev, found_dev, kv_dev, op,
+                          removed, win: int = 0, wd: bool = False,
+                          obuf=None):
+        """Launch every class chunk of one resolved batch: queries grouped
+        by total blocks sb_q into the _SB_CLASSES, in chunks whose decoded
+        rows stay within the reserve budget, one concat step each; queries
+        beyond the largest class go singly at their own block budget.
+
+        With `obuf` (pagination) each chunk scatters its P-slice into it.
+        Otherwise returns (dispatches, singles): dispatches are (query
+        indexes, out, oc, pending copy of oc and the masked max delta),
+        singles {query: exact values} (fetched here: they are rare)."""
+        stride = int(s.blocks.shape[1])
+        filt = removed is not None and removed.shape[0] > 0
+        nq = len(sb_q)
+
+        def run(batch, SB, wire_dedup):
+            sel = self._dev(batch.astype(np.int32))
+            o, oc = _concat_bool_sel_step(
+                s.blocks, s.term_block_start, s.counts, idx_dev, found_dev,
+                kv_dev, sel, SB, op, prefix_p=win, wire_dedup=wire_dedup)
+            if filt:
+                o, oc = _filter_removed(o, oc, removed)
+            return sel, o, oc
+
+        order = np.argsort(sb_q, kind="stable")
+        dispatches, singles = [], {}
+        pos = 0
+        for SB in self._SB_CLASSES:
+            hi = int(np.searchsorted(sb_q[order], SB, side="right"))
+            members = order[pos:hi]
+            pos = hi
+            qb = max(8, (_RESERVE_BUDGET // (SB * max(stride, 128))) // 8 * 8)
+            for c0 in range(0, len(members), qb):
+                batch = members[c0: c0 + qb]
+                sel, o, oc = run(batch, SB, wd)
+                if obuf is not None:
+                    _scatter_p_step(obuf, sel, o, oc)
+                    continue
+                md = _wire_meta_step(o, oc)
+                dispatches.append((batch, o, oc, _start_host_copy([oc, md])))
+            if pos >= nq:
+                break
+        # beyond the largest class: one at a time at their exact budget
+        for qi in order[pos:]:
+            sel, o, oc = run(np.array([qi]), _round_up(int(sb_q[qi]), 8),
+                             False)
+            if obuf is not None:
+                _scatter_p_step(obuf, sel, o, oc)
+                continue
+            c = int(oc[0])
+            singles[int(qi)] = to_numpy_u32(o[0, :c]).copy()
+        return dispatches, singles
+
+    def _harvest_rows(self, nq, dispatches, singles, wd: bool):
+        """Full results of one batch's dispatches: (nq,) list of arrays
+        (with wire dedup, adjacent duplicates dropped on the host)."""
+        ocs, mds = [], []
+        for d in dispatches:
+            oc_h, md_h = _finish_host_copy(d[3])
+            ocs.append(oc_h)
+            mds.append(md_h)
+        outs = self._wire_fetch(dispatches, ocs, mds)
+        rows: List[Optional[np.ndarray]] = [None] * nq
+        for (batch, _, _, _), oc, o in zip(dispatches, ocs, outs):
+            for j, qi in enumerate(batch):
+                row = o[j, : oc[j]]
+                rows[qi] = _dedup_adjacent(row) if wd else row
+        for qi, v in singles.items():
+            rows[qi] = v
+        return rows
+
+    @staticmethod
+    def _wire_fetch(dispatches, ocs, mds):
+        """Second copy of a full-result harvest: per dispatch, the
+        delta-packed plane at the width its masked max delta allows (u8 or
+        u16), or the raw u32 trim when deltas need more than 16 bits; every
+        copy is started before the first is waited on."""
+        pending, wire = [], []
+        for (_, o, _, _), oc_h, md_h in zip(dispatches, ocs, mds):
+            maxc = int(oc_h.max(initial=0))
+            if maxc <= 1:
+                pending.append(_start_host_copy([o[:, :1]]))
+                wire.append(False)
+            elif int(md_h) < (1 << 16):
+                f, dd = _wire_pack_step(o, 8 if int(md_h) < 256 else 16)
+                pending.append(_start_host_copy([f, dd[:, : maxc - 1]]))
+                wire.append(True)
+            else:
+                pending.append(_start_host_copy([o[:, :maxc]]))
+                wire.append(False)
+        outs = []
+        for p, w in zip(pending, wire):
+            h = _finish_host_copy(p)
+            if w:
+                dd = h[1] if h[1].dtype == np.uint8 else h[1].view(np.uint16)
+                outs.append(_wire_unpack(h[0].view(np.uint32), dd))
+            else:
+                outs.append(h[0].view(np.uint32))
+        return outs
+
+    def _resolve_concat(self, st, qk, nq):
+        """(idx, found) on the device and each query's total blocks on the
+        host. With retained tables the dictionary is probed on the host,
+        which the class grouping needs anyway."""
+        s = st.snap
+        if st.host_ready():
+            idxs, cnt, _ = _host_resolve_sb(st.tables, qk)
+            idx_dev, found_dev = _split_idx_step(self._dev(idxs))
+            sb_q = np.minimum(-(-cnt[:nq] // 128), 1 << 30).sum(axis=1)
+            return idx_dev, found_dev, sb_q
+        idx_dev, found_dev, sb = _resolve_sb_step(
+            s.keys, s.counts, self._dev(_narrow_keys(qk, s.width)),
+            s.hash_slots, s.max_probes)
+        return idx_dev, found_dev, sb.cpu().numpy()[:nq].astype(np.int64)
+
+    def _boolean_concat(self, st, queries, qk, kv, op: str, removed):
+        """Exact AND/OR sized by each query's real total postings: resolve,
+        group into total-block classes, one concat-decode + K4 sort +
+        run-length pass per class chunk (ops/concat_bool.py). Full-result
+        OR without a tombstone filter ships the sorted stream with
+        cross-list duplicates, dropped on the host (wire dedup)."""
+        nq = len(queries)
+        idx_dev, found_dev, sb_q = self._resolve_concat(st, qk, nq)
+        wd = op == "or" and (removed is None or removed.shape[0] == 0)
+        dispatches, singles = self._dispatch_classes(
+            st.snap, sb_q, idx_dev, found_dev, self._dev(kv), op, removed,
+            wd=wd)
+        rows = self._harvest_rows(nq, dispatches, singles, wd)
+        return [r.copy() for r in rows]
+
+    def _staged_concat_stream(self, st, batches, op: str, removed,
+                              depth: int, columnar: bool, prefix_p: int):
+        """Depth-pipelined stream over the concat classes, three stages per
+        batch, each overlapping the others' device time:
+
+          resolve:  pack, dedup, and resolve (host tables, or on the device
+                    with the (Q,) block sums copied back behind it)
+          classes:  group queries into classes and launch every chunk; with
+                    prefix_p each chunk scatters its P-slice into one
+                    (Q, P+1) buffer that is u16 delta-packed at once
+          harvest:  wait for the copies and assemble the batch
+
+        prefix_p=0 returns exact full results; prefix_p > 0 the
+        (values, voffs, true counts) pagination triple. Full-result OR
+        without a tombstone filter uses the wire-dedup contract, and
+        pagination OR without one compacts only the first prefix_p * K
+        sorted lanes (boolean_concat_step)."""
+        s = st.snap
+        P = int(prefix_p)
+        filt = removed is not None and removed.shape[0] > 0
+        wd = not P and op == "or" and not filt
+        win = P if (P and op == "or" and not filt) else 0
+        out_all: List = [None] * len(batches)
+        resq: deque = deque()
+        clsq: deque = deque()
+
+        def stage_resolve(bi):
+            nq, qk, kv = self._batch_pack(st, batches[bi])
+            if nq == 0:
+                resq.append((bi, 0, None, None, None))
+                return
+            # cross-query dedup: serve each distinct query once, fan out at
+            # harvest; the flat 10 us row cost is the JAX engine's concat
+            # row estimate, not re-measured on the card
+            nu, qk_u, kv_u, inv = self._dedup_batch(nq, qk, kv,
+                                                    row_cost_us=10.0)
+            if inv is not None:
+                nq, qk, kv = nu, qk_u, kv_u
+            if st.host_ready():
+                r = self._resolve_concat(st, qk, nq)
+            else:
+                idx_dev, found_dev, sb = _resolve_sb_step(
+                    s.keys, s.counts, self._dev(_narrow_keys(qk, s.width)),
+                    s.hash_slots, s.max_probes)
+                r = (idx_dev, found_dev, _start_host_copy([sb]))
+            resq.append((bi, nq, inv, self._dev(kv), r))
+
+        def stage_classes(item):
+            bi, nq, inv, kv_dev, r = item
+            if nq == 0:
+                clsq.append((bi, 0, None, None, None))
+                return
+            idx_dev, found_dev, sb = r
+            sb_q = (sb if isinstance(sb, np.ndarray)
+                    else _finish_host_copy(sb)[0])[:nq].astype(np.int64)
+            if P:
+                obuf = torch.zeros((nq, P + 1), dtype=torch.int32,
+                                   device=self.device)
+                self._dispatch_classes(s, sb_q, idx_dev, found_dev, kv_dev,
+                                       op, removed, win=win, obuf=obuf)
+                pk = _pack_p_step(obuf)
+                clsq.append((bi, nq, inv, (_start_host_copy([pk]), obuf),
+                             None))
+                return
+            dispatches, singles = self._dispatch_classes(
+                s, sb_q, idx_dev, found_dev, kv_dev, op, removed, wd=wd)
+            clsq.append((bi, nq, inv, dispatches, singles))
+
+        def stage_harvest(item):
+            bi, nq, inv, dispatches, singles = item
+            if nq == 0:
+                out_all[bi] = _empty_result(columnar, P)
+                return
+            if P:
+                out_all[bi] = self._harvest_page(nq, inv, P, *dispatches)
+                return
+            rows = self._harvest_rows(nq, dispatches, singles, wd)
+            if inv is not None:
+                # dedup fan-out; both output forms below copy per row
+                rows = [rows[int(u)] for u in inv]
+            if columnar:
+                out_all[bi] = _rows_to_columnar(rows)
+            else:
+                out_all[bi] = [np.array(r, dtype=np.uint32) for r in rows]
+
+        for bi in range(len(batches)):
+            stage_resolve(bi)
+            if len(resq) > depth:
+                stage_classes(resq.popleft())
+            if len(clsq) > depth:
+                stage_harvest(clsq.popleft())
+        while resq:
+            stage_classes(resq.popleft())
+            if len(clsq) > depth:
+                stage_harvest(clsq.popleft())
+        while clsq:
+            stage_harvest(clsq.popleft())
+        return out_all
+
+    def _harvest_page(self, nq, inv, P, pending, obuf):
+        """The pagination triple of one batch from its u16 delta plane (see
+        _pack_p_step); rows whose overflow flag is set are read raw from
+        the resident buffer."""
+        pk = _finish_host_copy(pending)[0].view(np.uint16)[:nq]
+        d = pk[:, : P - 1].astype(np.uint32)
+        first = pk[:, P - 1].astype(np.uint32) | (
+            pk[:, P].astype(np.uint32) << 16)
+        hi = pk[:, P + 2].astype(np.int64)
+        counts = pk[:, P + 1].astype(np.int64) | ((hi & 0x7FFF) << 16)
+        vals = np.empty((nq, P), np.uint32)
+        vals[:, 0] = first
+        vals[:, 1:] = first[:, None] + np.cumsum(d, axis=1, dtype=np.uint32)
+        ovr = np.nonzero(hi >> 15)[0]
+        if len(ovr):
+            raw = to_numpy_u32(obuf[torch.from_numpy(ovr).to(obuf.device)])
+            vals[ovr] = raw[:, :P]
+            counts[ovr] = raw[:, P].astype(np.int64)
+        if inv is not None:
+            counts = counts[inv]
+            vals = vals[inv]
+            nq = len(inv)
+        kept = np.minimum(counts, P)
+        pvoffs = np.zeros(nq + 1, dtype=np.int64)
+        np.cumsum(kept, out=pvoffs[1:])
+        m = np.arange(P, dtype=np.int64)[None, :] < kept[:, None]
+        return vals[m], pvoffs, counts

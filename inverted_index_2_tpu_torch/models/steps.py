@@ -1,5 +1,5 @@
-"""Serving steps (functions of snapshot tensors) and small shared helpers
-(counterpart of models/steps.py, main tier and AND only)."""
+"""Serving steps (functions of snapshot tensors), the result wire codec and
+small shared helpers (counterpart of models/steps.py, main tier)."""
 from __future__ import annotations
 
 from typing import List
@@ -7,13 +7,13 @@ from typing import List
 import numpy as np
 import torch
 
-from inverted_index_2_tpu.codec import hashing
-
+from ..codec import hashing
 from ..ops import setops
+from ..ops.concat_bool import boolean_concat_step, resolve_step
 from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import fused_and, reorder_smallest_base
 from ..ops.dict_search import resolve
-from ..utils.u32 import flip
+from ..utils.u32 import MASK32, flip, to_i64
 
 
 def lookup_step(keys, blocks, term_block_start, counts, qkeys, L: int,
@@ -118,6 +118,124 @@ def _host_resolve_sb(tables, qk: np.ndarray):
         idx >= 0, tables.counts[np.maximum(idx, 0)].astype(np.int64), 0)
     sb = (-(-cnt // 128)).sum(axis=1)
     return idx, cnt, sb
+
+
+def _resolve_sb_step(keys, counts, qkeys, slots=None, max_probes: int = 0):
+    """resolve_step plus each query's total block count, reduced on the
+    device: (idx (Q, K), found (Q, K), sb (Q,) int32)."""
+    idx, found, raw = resolve_step(keys, counts, qkeys, slots, max_probes)
+    nb = (raw.to(torch.int64) + 127) // 128
+    return idx, found, nb.sum(dim=1).to(torch.int32)
+
+
+def _split_idx_step(idx_signed):
+    """Host-resolved signed term rows (-1 = miss) -> the (idx, found) pair
+    the concat steps take."""
+    return idx_signed.clamp(min=0).to(torch.int64), idx_signed >= 0
+
+
+def _concat_bool_sel_step(blocks, tbs, counts, idx_full, found_full,
+                          kv_full, sel, SB: int, op: str, prefix_p: int = 0,
+                          wire_dedup: bool = False):
+    """boolean_concat_step over the rows `sel` (B,) of one resolved batch
+    (the stream launches no pad rows, so every entry is a real row)."""
+    s2 = sel.to(torch.int64)
+    return boolean_concat_step(blocks, tbs, counts, idx_full[s2],
+                               found_full[s2], kv_full[s2], SB, op,
+                               prefix_p=prefix_p, wire_dedup=wire_dedup)
+
+
+def _scatter_p_step(obuf, sel, o, oc):
+    """Write one class chunk's P-slice into the batch's result buffer:
+    obuf (QB, P+1) u32 bits, columns [0, P) the first P values and column P
+    the true count, row sel[i] from chunk row i. In place; returns obuf.
+    Every sel entry must be a real row: the caller slices pad rows off
+    first, because a torch index of -1 writes the LAST row (JAX's did too,
+    before mode="drop"), which would overwrite the last query's page."""
+    P = obuf.shape[1] - 1
+    o2 = o[:, :P]
+    if o2.shape[1] < P:
+        o2 = torch.nn.functional.pad(o2, (0, P - o2.shape[1]))
+    row = torch.cat([o2.to(obuf.dtype), oc.to(obuf.dtype)[:, None]], dim=1)
+    return obuf.index_copy_(0, sel.to(torch.int64), row)
+
+
+def _u16_bits(x):
+    """int64 values in [0, 2^16) -> int16 tensor with the same low 16 bits
+    (the host reads it as uint16)."""
+    return torch.where(x >= 1 << 15, x - (1 << 16), x).to(torch.int16)
+
+
+def _pack_p_step(obuf):
+    """u16 delta-pack of one batch's pagination buffer, one (QB, P+3) plane
+    (int16 bits of u16 values):
+      cols [0, P-1): value deltas truncated to u16 (invalid lanes zeroed)
+      col P-1, P:    first value lo/hi
+      col P+1, P+2:  true count lo / hi, with bit 15 of hi the OVERFLOW flag
+                     (some kept delta >= 2^16; the harvest then reads those
+                     rows raw from the resident buffer)
+    Count hi bit 15 is free: counts are non-negative int32."""
+    P = obuf.shape[1] - 1
+    vals = to_i64(obuf[:, :P])
+    cnt = to_i64(obuf[:, P])
+    kept = cnt.clamp(max=P)
+    d = (vals[:, 1:] - vals[:, :-1]) & MASK32
+    j = torch.arange(P - 1, device=obuf.device)[None, :]
+    d = torch.where(j < (kept - 1)[:, None], d, 0)
+    flag = (d >= 1 << 16).any(dim=1).to(torch.int64)
+    first = vals[:, 0]
+    cols = [d & 0xFFFF, (first & 0xFFFF)[:, None], (first >> 16)[:, None],
+            (cnt & 0xFFFF)[:, None], ((cnt >> 16) | (flag << 15))[:, None]]
+    return _u16_bits(torch.cat(cols, dim=1))
+
+
+# -- result wire codec (full-result fetch compression) ----------------------
+#
+# Result rows are sorted, so their deltas are small: a dispatch ships (first
+# value u32, deltas u8 or u16) and the host rebuilds rows with one cumsum.
+# The width is chosen per dispatch from the masked max delta, which rides
+# the counts copy; a dispatch whose max delta needs 17+ bits ships raw u32.
+
+
+def _wire_meta_step(o, oc):
+    """Masked max result delta of a dispatch (int64 scalar); deltas past a
+    row's count are fill and must not widen the choice."""
+    if o.shape[1] < 2:
+        return torch.zeros((), dtype=torch.int64, device=o.device)
+    d = (to_i64(o[:, 1:]) - to_i64(o[:, :-1])) & MASK32
+    col = torch.arange(o.shape[1] - 1, device=o.device)[None, :]
+    mask = col < (oc.to(torch.int64) - 1)[:, None]
+    return torch.where(mask, d, 0).max()
+
+
+def _wire_pack_step(o, bits: int):
+    """(first column (B, 1) u32 bits, delta plane (B, M-1) uint8 or int16
+    bits of u16). Deltas past a row's count may wrap; the host trims to the
+    row count before it reads them."""
+    d = (to_i64(o[:, 1:]) - to_i64(o[:, :-1])) & MASK32
+    if bits == 8:
+        return o[:, :1], (d & 0xFF).to(torch.uint8)
+    return o[:, :1], _u16_bits(d & 0xFFFF)
+
+
+def _wire_unpack(first: np.ndarray, deltas: np.ndarray) -> np.ndarray:
+    """Host half: rebuild the (B, 1 + deltas.shape[1]) u32 result matrix."""
+    out = np.empty((first.shape[0], 1 + deltas.shape[1]), dtype=np.uint32)
+    out[:, :1] = first
+    out[:, 1:] = deltas
+    return np.cumsum(out, axis=1, dtype=np.uint32)
+
+
+def _dedup_adjacent(v: np.ndarray) -> np.ndarray:
+    """Drop adjacent duplicates from one sorted row: the host half of the
+    wire-dedup OR contract (result sets are sorted unique, so a repeat can
+    only be a cross-list duplicate the device left in the stream)."""
+    if len(v) < 2:
+        return v
+    m = np.empty(len(v), dtype=bool)
+    m[0] = True
+    np.not_equal(v[1:], v[:-1], out=m[1:])
+    return v[m]
 
 
 def _not_ported(what: str, item: int):

@@ -1,7 +1,9 @@
-"""Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND).
+"""Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND, K4
+row sort).
 
 At first use (never at import) nvcc compiles every `csrc/*.cu` for Hopper
-(`sm_90a`) into one shared library with a plain C interface, under
+(`sm_90a`), one process per source in parallel, and links them into one
+shared library with a plain C interface, under
 `build/kernels/` in the checkout, named by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads as it is. The
 library is loaded with ctypes: every pointer and the stream pass as
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -57,26 +59,46 @@ def library_path() -> Path:
 
 
 def _compile(so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], False
+    for _, proc in jobs:
+        logs.append(proc.communicate()[0])
+        failed |= proc.returncode != 0
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        res = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *[str(o) for o, _ in jobs]],
+            capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        failed = res.returncode != 0
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
     os.replace(tmp, so)
 
 
 def _bind(lib):
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.tpi_decode_postings.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp]
     lib.tpi_decode_postings.restype = i
     lib.tpi_fused_and.argtypes = [vp, i, vp, vp, vp, i, i, i, vp, vp, vp]
     lib.tpi_fused_and.restype = i
+    lib.tpi_sort_rows.argtypes = [vp, i64, vp, i64, i64, vp]
+    lib.tpi_sort_rows.restype = i
     lib.tpi_error_string.argtypes = [i]
     lib.tpi_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,8 +16,9 @@ import torch
 
 from . import _build
 from .cuda_decode import _check_int32
+from .cuda_sort import sort_rows
 from .decode import BLOCK, decode_lists
-from ..utils.u32 import MASK32, from_i64, sort_u32
+from ..utils.u32 import MASK32, from_i64
 
 MAX_LEVEL = 16384       # largest L K2 takes: a 64 KiB base in shared memory
 _PLAIN_BUDGET = 1 << 22  # values per probe matrix in the plain version
@@ -121,8 +122,8 @@ def fused_and(blocks: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
             fused_and.launches += 1
     else:
         raise ValueError(f"no K2 kernel for device {dev}")
-    if compact:
-        out = sort_u32(out, dim=1)
+    if compact:  # the row sort, through K4 on the card
+        out = sort_rows(out)
     return out, oc
 
 

@@ -1,17 +1,11 @@
-"""Tombstone filter and row compaction on torch tensors (counterpart of
-ops/setops.filter_removed and ops/compaction.compact_rows)."""
+"""Tombstone filter on torch tensors (counterpart of
+ops/setops.filter_removed)."""
 from __future__ import annotations
 
 import torch
 
-from ..utils.u32 import SENT, flip, sort_u32
-
-
-def compact_rows(vals: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Kept lanes of each row packed to the front in ascending u32 order,
-    0xFFFFFFFF after them (a kept genuine 0xFFFFFFFF is interchangeable
-    with that fill at the count boundary)."""
-    return sort_u32(torch.where(keep, vals, SENT), dim=1)
+from ..utils.u32 import flip
+from .compaction import compact_rows
 
 
 def filter_removed(vals: torch.Tensor, counts: torch.Tensor,

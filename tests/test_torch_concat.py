@@ -85,10 +85,10 @@ def test_concat_and_matches_jax(rng, SB):
     jout, joc = jax_steps._JIT_CONCAT_BOOL(
         jsnap.blocks, jsnap.term_block_start, jsnap.counts, jnp.asarray(idx),
         jnp.asarray(found), jnp.asarray(kv), SB, "and")
-    out, oc = concat_bool.boolean_concat_and_step(
+    out, oc = concat_bool.boolean_concat_step(
         snap.blocks, snap.term_block_start, snap.counts,
         torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(found),
-        torch.from_numpy(kv), SB)
+        torch.from_numpy(kv), SB, "and")
     assert np.array_equal(oc.numpy(), np.asarray(joc))
     assert _valid_rows(to_numpy_u32(out), oc.numpy()) == _valid_rows(
         np.asarray(jout), np.asarray(joc))

@@ -176,9 +176,8 @@ def test_lookup_matches_jax_and_host_read(tmp_path, rng, monkeypatch):
 
 def test_outside_the_slice_raises(corpus):
     lists, terms, queries, removed, port, jax_eng = corpus
-    for call in (lambda: port.boolean(queries, "or"),
-                 lambda: port.boolean_staged([queries], "and", columnar=True,
-                                             prefix_p=4),
+    for call in (lambda: port.lookup_host(queries[0]),
+                 lambda: port.boolean_host(queries, "or"),
                  lambda: port.refresh(None),
                  lambda: port.read_range()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

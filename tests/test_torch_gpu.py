@@ -1,5 +1,6 @@
-"""Kernels K1 (decode) and K2 (fused AND) on the card against their plain
-torch versions, and the engine on CUDA against the engine on the CPU.
+"""Kernels K1 (decode), K2 (fused AND) and K4 (row sort) on the card
+against their plain torch versions, and the engine on CUDA against the
+engine on the CPU and a numpy oracle (AND, OR, pagination, staged lookup).
 
 Marked `gpu`: they need an NVIDIA card and nvcc and skip elsewhere. This
 file imports no `jax`, so on a machine without it run it with
@@ -11,7 +12,7 @@ import torch
 from inverted_index_2_tpu_torch import QueryEngine
 from inverted_index_2_tpu_torch.models import query_engine as port_qe
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
-from inverted_index_2_tpu_torch.ops import cuda_decode, cuda_fused
+from inverted_index_2_tpu_torch.ops import cuda_decode, cuda_fused, cuda_sort
 from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
 from inverted_index_2_tpu_torch.ops.cuda_fused import (
     MAX_LEVEL,
@@ -127,3 +128,73 @@ def test_engine_cuda_matches_cpu(cuda, monkeypatch):
         assert np.array_equal(go, co) and np.array_equal(gv, cv)
     assert gpu.last_stream_stats["concat"] > 0
     assert gpu.last_stream_stats["served_rows"] < 2 * len(queries)
+
+
+def _sort_input(rng, Q, M):
+    x = rng.integers(0, 2**32, size=(Q, M), dtype=np.uint64).astype(np.uint32)
+    x[0] = 0xFFFFFFFF                      # a row full of the fill value
+    x[1] = 0x80000000                      # a row at the sign bit
+    x[2, ::3] = 0xFFFFFFFF
+    x[2, 1::3] = 0x80000000
+    x[3] = rng.integers(0, 4, size=M)      # long runs of equal values
+    return torch.from_numpy(x.view(np.int32))
+
+
+@pytest.mark.parametrize("Q,M", [(16384, 1024), (4096, 4096), (2048, 8192),
+                                 (1024, 16384), (256, 65536), (64, 262144),
+                                 (40, 160), (24, 5000), (8, 128)])
+def test_sort_kernel_matches_plain(cuda, Q, M):
+    x = _sort_input(np.random.default_rng(Q + M), Q, M).to(cuda)
+    before = cuda_sort.sort_rows.launches
+    got = cuda_sort.sort_rows(x)
+    torch.cuda.synchronize()
+    assert cuda_sort.sort_rows.launches == before + 1
+    assert got.shape == (Q, M)
+    assert torch.equal(got, cuda_sort.sort_rows_torch(x))
+
+
+def _or_oracle(lists, terms, q, op):
+    sets = [lists[terms.index(t)] for t in q if t in terms]
+    if op == "and":
+        if len(sets) < len(q):
+            return np.zeros(0, np.uint32)
+        out = sets[0]
+        for v in sets[1:]:
+            out = np.intersect1d(out, v)
+        return out
+    return (np.unique(np.concatenate(sets)).astype(np.uint32) if sets
+            else np.zeros(0, np.uint32))
+
+
+def test_engine_cuda_or_and_pages_match_oracle(cuda, monkeypatch):
+    lists, t = _corpus(8, n_terms=120)
+    terms = [f"t{i:05d}".encode() for i in range(len(lists))]
+    gpu = QueryEngine(upload_tables(t, device=cuda), L=256, tables=t,
+                      device=cuda)
+    bare = QueryEngine(upload_tables(t, device=cuda), L=256, device=cuda)
+    rng = np.random.default_rng(9)
+    queries = [[terms[i] for i in rng.choice(len(terms), size=int(k))]
+               for k in rng.integers(1, 6, size=300)]
+    queries += [[terms[-1], b"missing"], [b"missing"]]
+    monkeypatch.setenv("TPI_STAGED_DEDUP", "force")
+    k4 = cuda_sort.sort_rows.launches
+    for eng in (gpu, bare):
+        eng._SB_CLASSES = (8, 32)  # long queries go singly
+        want = [_or_oracle(lists, terms, q, "or") for q in queries]
+        for a, w in zip(eng.boolean(queries, "or"), want):
+            assert np.array_equal(a, w)
+        vals, voffs = eng.boolean_staged([queries[:150] * 2, queries[150:]],
+                                         "or", columnar=True)[0]
+        for i, w in enumerate(want[:150] * 2):
+            assert np.array_equal(vals[voffs[i]:voffs[i + 1]], w)
+        for op in ("or", "and"):
+            pv, pvo, pc = eng.boolean_staged([queries], op, columnar=True,
+                                             prefix_p=8)[0]
+            for i, q in enumerate(queries):
+                w = _or_oracle(lists, terms, q, op)
+                assert pc[i] == len(w)
+                assert np.array_equal(pv[pvo[i]:pvo[i + 1]], w[:8])
+        rows = eng.lookup_staged([terms + [b"missing"]])[0]
+        for i, w in enumerate(lists + [np.zeros(0, np.uint32)]):
+            assert np.array_equal(rows[i], w)
+    assert cuda_sort.sort_rows.launches > k4
