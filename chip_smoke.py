@@ -8,19 +8,27 @@ Phases; any failure raises and the script exits non-zero:
   1. the card: CUDA must be available; prints nvidia-smi's name and power
      limit;
   2. build: nvcc builds the kernels of inverted_index_2_tpu_torch/csrc
-     (kernel K1, posting decode; K2, fused decode + AND; K4, row sort), one
-     nvcc per source in parallel;
+     (kernel K1, posting decode; K2, fused decode + AND; K3, sorted-set AND;
+     K4, row sort), one nvcc per source in parallel;
   3. each kernel against its plain torch version on the card, bit-identical:
      K1 and K2 at the AND slice's shapes (Q=8192 queries of up to 8 terms,
-     L=2048, and the ladder level 8192), K4 at the concat classes' chunk
-     shapes (16384, 1024) .. (256, 65536), at (64, 262144) and at one
-     padded width, with rows of 0xFFFFFFFF and 0x80000000; each timed with
-     CUDA events beside its plain version, torch.sort for K4, and its bound;
+     L=2048, and the ladder level 8192), K3 on the lists the delta window's
+     dual AND runs on (checked once phase 5 has made the delta): the pass
+     over one uniform batch (Q=8192, K=8, width 2L=4096) and the first
+     ladder re-serve dispatch at each level of the uniform stream (width
+     2 x level, with probe lists past the shared-memory stage), K4 at the
+     concat classes' chunk shapes (16384, 1024) .. (256, 65536), at
+     (64, 262144) and at one padded width, with rows of 0xFFFFFFFF and
+     0x80000000; each timed with CUDA events beside its plain version,
+     torch.sort for K4, and its bound (for K3, the lists its inputs need:
+     a query's AND stops at its first empty running result);
   4. a small engine check: an InvertedIndex (the port's) built with put /
      put_removed / merge, served by QueryEngine.from_index(...) on the card,
      against a numpy oracle: lookup, AND, OR (with tombstones), prefix_p
      pages for AND and OR, lookup_staged, ladder re-serves, small-P overflow
-     and queries beyond the largest concat class;
+     and queries beyond the largest concat class; then refresh() through an
+     additive delta, a tombstone-only refresh, a promotion and a compaction
+     rebuild, every state against the oracle of the index's host reads;
   5. the main paths at a realistic size: the config-3 deployment of
      BASELINE.md (Boolean queries of 2-8 terms, mean posting length 1k), cut
      from 10M to --terms terms: boolean_staged AND (columnar, depth 4) over
@@ -30,6 +38,12 @@ Phases; any failure raises and the script exits non-zero:
      lookup_staged over 4 batches of the queries' first terms; three timed
      passes each, sampled results against the oracle, each path's kernel
      launches, then one profiled pass of each stream (device busy share).
+     Then the delta window: a delta of 20,000 terms (10% of main) published
+     as refresh() publishes it, and the dual step's streams over the union
+     vocabulary: AND over 4 uniform and 4 Zipf batches, OR pages over the 4
+     uniform ones, full-result OR over one, and 8192 lookups, sampled
+     results against the per-term union of both tiers, K1, K3 and K4
+     launched on the dual AND path, and one profiled dual AND pass.
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with each kernel's launches, error, time against its plain version
 and the library call, and bound, and nvidia-smi's name and power limit of
@@ -50,7 +64,9 @@ import numpy as np
 L_MAIN = 2048
 BATCH = 8192
 N_BATCHES = 8
+N_DUAL_BATCHES = 4
 PAGE_P = 32
+DELTA_TERMS = 20_000  # 10% of the 200,000-term main, under DELTA_FRACTION
 
 # the bound of a kernel: the larger of its bytes over the HBM rate and its
 # operations over the card's peak rate for their type (H100 SXM, NVIDIA's
@@ -58,6 +74,10 @@ PAGE_P = 32
 # table's rate for ALU work, taken for the integer compares and shifts)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+
+# K3 stages a probe list in shared memory up to this many values and
+# searches a longer one in global memory (kStage in csrc/intersect.cu)
+K3_STAGE = 8192
 
 # K4 at the concat classes' chunk shapes (one 2^24-element chunk per class
 # up to SB = 128, then SB = 512), a long row past shared memory, and the
@@ -99,19 +119,56 @@ def gen_corpus(n_terms: int, mean_len: int, seed: int):
     return terms_mat, offsets, values, voffs
 
 
-def and_oracle(values, voffs, idxs):
+def and_oracle(term_list, idxs):
     out = None
     for i in idxs:
-        v = values[voffs[i]:voffs[i + 1]]
+        v = term_list(i)
         out = v if out is None else np.intersect1d(out, v, assume_unique=True)
     return out
 
 
-def or_oracle(values, voffs, idxs):
+def or_oracle(term_list, idxs):
     out = np.zeros(0, np.uint32)
     for i in idxs:
-        out = np.union1d(out, values[voffs[i]:voffs[i + 1]])
+        out = np.union1d(out, term_list(i))
     return out.astype(np.uint32)
+
+
+def gen_delta(terms_mat, values, voffs, n_delta: int, seed: int):
+    """The delta tier of phase 5: n_delta terms, half of them main terms
+    that gain postings and half new 12-byte terms (first byte a digit, so
+    never a main term); geometric list lengths with mean 100; doc ids above
+    main's largest value, and a tenth of a grown term's postings duplicates
+    of its main values. Returns (delta terms (n, 12) uint8 sorted, their
+    universe ids (main term i is i, new term k is len(main) + k), values,
+    voffs, the new terms (m, 12))."""
+    rng = np.random.default_rng(seed)
+    n_main = len(terms_mat)
+    half = n_delta // 2
+    grow = np.sort(rng.choice(n_main, size=half, replace=False))
+    raw = rng.integers(97, 123, size=(2 * (n_delta - half), 12),
+                       dtype=np.uint8)
+    raw[:, 0] = rng.integers(48, 58, size=len(raw), dtype=np.uint8)
+    new = np.unique(raw, axis=0)
+    new = new[np.sort(rng.choice(len(new), size=n_delta - half,
+                                 replace=False))]
+    ids = np.concatenate([grow, n_main + np.arange(len(new))])
+    mat = np.concatenate([terms_mat[grow], new])
+    order = np.lexsort(mat.T[::-1])
+    mat, ids = mat[order], ids[order]
+    lens = np.maximum(1, rng.geometric(1.0 / 100, size=n_delta))
+    top = int(values.max()) + 1
+    lists = []
+    for i, n in zip(ids, lens):
+        fresh = top + np.cumsum(rng.integers(1, 80_000, size=n))
+        if i < n_main and n >= 10:
+            own = values[voffs[i]:voffs[i + 1]]
+            fresh = np.concatenate([fresh[: n - n // 10],
+                                    rng.choice(own, size=n // 10)])
+        lists.append(np.unique(fresh).astype(np.uint32))
+    dvoffs = np.zeros(n_delta + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in lists], out=dvoffs[1:])
+    return mat, ids, np.concatenate(lists), dvoffs, new
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -297,6 +354,218 @@ def phase_sort(torch, dev):
     return reported
 
 
+def _dual_inputs(torch, st, qk, kv, lv):
+    """K3's inputs on the dual step's path: the union of each term's first
+    lv postings in both tiers of state `st`, (Q, K, 2 lv), with counts,
+    k_valid and each query's summed need."""
+    from inverted_index_2_tpu_torch.models.steps import (
+        _max_live, _narrow_keys, dual_lists)
+    from inverted_index_2_tpu_torch.utils.u32 import to_device
+
+    s, d = st.snap, st.delta
+    dev = s.device
+    lists, ncnt, raw = dual_lists(
+        s.keys, s.blocks, s.term_block_start, s.counts, s.hash_slots,
+        d.keys, d.blocks, d.term_block_start, d.counts, d.hash_slots,
+        to_device(_narrow_keys(qk, s.width), dev),
+        to_device(_narrow_keys(qk, d.width), dev), lv, s.max_probes,
+        d.max_probes)
+    kvt = to_device(kv, dev)
+    return lists, ncnt, kvt, _max_live(raw, kvt)
+
+
+def _check_k3(torch, lists, ncnt, kvt, label):
+    """K3 against its plain version on one input, whole rows and counts;
+    timed beside it. Returns (err, ms, plain ms, bound ms, bound_by, the
+    probe lists past K3_STAGE that the AND reaches)."""
+    from inverted_index_2_tpu_torch.ops import cuda_bool, setops
+    from inverted_index_2_tpu_torch.utils.u32 import to_i64
+
+    ko, kc = cuda_bool.intersect_many(lists, ncnt, kvt)
+    po, pc = setops.intersect_many(lists, ncnt, kvt)
+    torch.cuda.synchronize()
+    check(torch.equal(kc, pc), f"K3 {label}: counts differ from the plain "
+          "version")
+    err = int((to_i64(ko) - to_i64(po)).abs().max())
+    check(err == 0 and torch.equal(ko, po),
+          f"K3 {label}: rows differ from the plain version (max abs {err})")
+    k_ms = time_ms(torch, lambda: cuda_bool.intersect_many(lists, ncnt, kvt),
+                   20)
+    p_ms = time_ms(torch, lambda: setops.intersect_many(lists, ncnt, kvt), 3)
+    # what these inputs need: list j is read only while the running AND of
+    # lists 0 .. j-1 is non-empty (the kernel stops a query there), so the
+    # plain version's running counts decide which lists count
+    Q, K, W = lists.shape
+    kv = kvt.cpu().numpy().astype(np.int64)
+    c = ncnt.cpu().numpy().astype(np.int64)
+    live = np.arange(K)[None, :] < kv[:, None]
+    c = np.where(live, c, 0)
+    run = np.zeros((Q, K), dtype=np.int64)  # run[:, j]: AND of lists 0..j
+    run[:, 0] = c[:, 0]
+    for j in range(1, K - 1):
+        run[:, j] = setops.intersect_many(
+            lists, ncnt, kvt.clamp(max=j + 1))[1].cpu().numpy()
+    reached = live.copy()
+    reached[:, 1:] &= run[:, :-1] > 0
+    # bytes: the reached valid prefixes read once, the (Q, W) rows and
+    # counts written once, counts and k_valid read once; operations: a
+    # binary search of log2(count + 1) steps per surviving base value and
+    # reached probe list
+    ops = (run[:, :-1] * np.log2(c[:, 1:] + 1) * reached[:, 1:]).sum()
+    b_ms, b_by = bound((c * reached).sum() * 4 + Q * W * 4 + Q * 4
+                       + Q * K * 4 + Q * 4, ops)
+    wide = int((reached[:, 1:] & (c[:, 1:] > K3_STAGE)).sum())
+    print(f"[phase 3] K3 intersect {label} Q={Q} K={K} width={W}: "
+          f"bit-identical ({int(kc.sum())} kept, {int(c.sum())} valid "
+          f"values, {int((c * reached).sum())} reached, {wide} reached "
+          f"probe lists past {K3_STAGE}), kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return err, k_ms, p_ms, b_ms, b_by, wide
+
+
+def phase_intersect(torch, eng, st, batches):
+    """Phase 3, K3: bit-identical to its plain version, whole rows and
+    counts, on the lists the dual step's AND runs on in the delta window
+    (state `st`): the pass at L_MAIN over the first uniform batch, (Q, K,
+    2 L_MAIN), then the first ladder re-serve dispatch at each level,
+    made as _drain_levels makes them from the re-served rows of all the
+    `batches` (one stream). The top level must hold a reached probe list
+    past K3_STAGE, so K3's global-memory search runs. Each is timed beside
+    the plain version. No single PyTorch call computes a sorted-set AND,
+    so there is no library time. Returns the pass's numbers."""
+    from inverted_index_2_tpu_torch.models.steps import _RESERVE_BUDGET
+
+    packed = [eng._pack_boolean(st, b) for b in batches]
+    items = []  # (need, level, qk row, kv) of every re-served row
+    res = None
+    for bi, (qk, kv) in enumerate(packed):
+        lists, ncnt, kvt, need = _dual_inputs(torch, st, qk, kv, L_MAIN)
+        if bi == 0:
+            err, k_ms, p_ms, b_ms, b_by, _ = _check_k3(
+                torch, lists, ncnt, kvt, "dual pass")
+            res = (err, k_ms, p_ms, None, b_ms, b_by)
+        del lists, ncnt
+        need = need.cpu().numpy()
+        for i in np.nonzero(need > L_MAIN)[0]:
+            items.append((qk[i], int(kv[i]),
+                          eng._level_for(int(need[i]), st)))
+        torch.cuda.empty_cache()
+    # _drain_levels' dispatches: rows by level, largest first (a stable
+    # sort), each dispatch at the level of its first row; keep the first
+    # dispatch at each level
+    items.sort(key=lambda t: -t[2])
+    K = max(t[0].shape[0] for t in items)
+    firsts, i = {}, 0
+    while i < len(items):
+        lv = items[i][2]
+        rows = items[i: i + max(1, _RESERVE_BUDGET // (K * lv))]
+        firsts.setdefault(lv, rows)
+        i += len(rows)
+    check(len(firsts) >= 2, f"K3: the re-serves reach levels "
+          f"{list(firsts)} only")
+    wide = 0
+    for lv, rows in firsts.items():
+        qk = eng._stack_rows([t[0] for t in rows])
+        kv = np.array([t[1] for t in rows], dtype=np.int32)
+        lists, ncnt, kvt, _ = _dual_inputs(torch, st, qk, kv, lv)
+        wide += _check_k3(torch, lists, ncnt, kvt,
+                          f"re-serve level {lv} "
+                          f"({len(items)} re-served rows)")[5]
+        del lists, ncnt
+        torch.cuda.empty_cache()
+    check(wide > 0, f"K3: no re-serve reached a probe list past {K3_STAGE}")
+    return res
+
+
+def phase_refresh(torch, device):
+    """Phase 4, refresh(): an InvertedIndex (the port's) served by one
+    engine through an additive delta, a tombstone-only refresh, a
+    promotion and a compaction, each state checked against a numpy oracle
+    of the index's host reads: lookup, AND and OR, staged rows and pages,
+    with and without the tombstone filter."""
+    from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine, to_slice
+    from inverted_index_2_tpu_torch.models.snapshot import _collect_removed
+    from inverted_index_2_tpu_torch.ops import cuda_bool
+
+    rng = np.random.default_rng(13)
+    vocab = [f"v{i:03d}".encode() for i in range(40)]
+    with tempfile.TemporaryDirectory() as d:
+        ii = InvertedIndex(d)
+        for v in range(1, 801):
+            ii.put([b"common"] + [vocab[j] for j in
+                                  rng.choice(len(vocab), 2, replace=False)],
+                   v)
+        while ii.merge(1, 100, 2) > 0:
+            pass
+        eng = QueryEngine.from_index(ii, L=128, device=device)
+        queries = [[b"common", vocab[1]], [vocab[2], vocab[3]],
+                   [b"common"], [vocab[4], b"missing"]]
+
+        def verify(stage):
+            host = {tv.term: tv.values for tv in to_slice(ii.read(None, None))}
+            removed = _collect_removed(ii)
+            terms = sorted(host) + [b"missing"]
+            qs = queries + [[t, b"common"] for t in sorted(host)[:6]]
+            for fr in (False, True):
+                def oracle(v):
+                    return np.setdiff1d(v, removed) if fr else v
+                for t, got in zip(terms, eng.lookup(terms, filter_removed=fr)):
+                    want = None if t not in host else oracle(host[t])
+                    check((got is None and want is None) or (
+                        got is not None and want is not None
+                        and np.array_equal(got, want)),
+                        f"{stage}: lookup {t!r} filter_removed={fr}")
+                for op in ("and", "or"):
+                    want = []
+                    for q in qs:
+                        sets = [host.get(t, np.zeros(0, np.uint32)) for t in q]
+                        w = sets[0]
+                        for v in sets[1:]:
+                            w = (np.intersect1d(w, v) if op == "and"
+                                 else np.union1d(w, v))
+                        want.append(oracle(w.astype(np.uint32)))
+                    got = eng.boolean(qs, op, filter_removed=fr)
+                    pv, pvo, pc = eng.boolean_staged([qs], op, fr,
+                                                     columnar=True,
+                                                     prefix_p=4)[0]
+                    for i, w in enumerate(want):
+                        check(np.array_equal(got[i], w),
+                              f"{stage}: {op} query {i} fr={fr}")
+                        check(pc[i] == len(w) and np.array_equal(
+                            pv[pvo[i]:pvo[i + 1]], w[:4]),
+                            f"{stage}: {op} page {i} fr={fr}")
+            check(eng.refresh(ii) is False, f"{stage}: a no-op refreshed")
+
+        verify("from_index")
+        main = eng.snap
+        k3 = cuda_bool.intersect_many.launches
+        for v in range(1001, 1004):  # additive, under DELTA_FRACTION
+            ii.put([b"common", vocab[v % 40], f"fresh-term-{v}".encode()], v)
+        check(eng.refresh(ii) and eng.snap is main and eng.delta is not None,
+              "an additive change did not make a delta")
+        verify("delta")
+        check(device == "cpu" or cuda_bool.intersect_many.launches > k3,
+              "the delta window's AND never launched K3")
+        ii.put_removed([5, 6, 1003])  # tombstones only
+        check(eng.refresh(ii) and eng.snap is main and eng.delta is not None,
+              "a tombstone-only refresh replaced the tiers")
+        verify("tombstones")
+        for v in range(2001, 2031):  # a delta above DELTA_FRACTION: promote
+            ii.put([b"common", f"promo-{v}".encode()], v)
+        check(eng.refresh(ii) and eng.delta is None and eng.snap is not main,
+              "a large delta did not promote")
+        verify("promotion")
+        main = eng.snap
+        while ii.merge(1, 1000, 2) > 0:  # compaction: a rebuild
+            pass
+        check(eng.refresh(ii) and eng.delta is None and eng.snap is not main,
+              "a compaction did not rebuild")
+        verify("compaction")
+    print("[phase 4] refresh(): additive delta, tombstone-only refresh, "
+          "promotion and compaction rebuild; lookup, AND, OR and pages equal "
+          "the oracle in every state")
+
+
 def phase_engine_small(torch, device):
     """Phase 4: the engine from an InvertedIndex against a numpy oracle."""
     from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine, to_slice
@@ -416,12 +685,12 @@ def uniform_stream(rng, n_terms, n_batches):
              for _ in range(BATCH)] for _ in range(n_batches)]
 
 
-def run_stream(eng, values, voffs, term_bytes, stream, name, op="and",
+def run_stream(eng, term_list, term_bytes, stream, name, op="and",
                prefix_p=0, depth=4, lookup=False, reps=3):
     """Serve one stream `reps` times after a warm pass; check a sample of
-    the last pass against the oracle. stream: batches of queries (term
-    index arrays), or of term indexes with lookup=True. Returns the byte
-    batches and the median QPS."""
+    the last pass against the oracle (term_list(i): term i's postings).
+    stream: batches of queries (term index arrays), or of term indexes with
+    lookup=True. Returns the byte batches and the median QPS."""
     if lookup:
         batches = [[term_bytes[i] for i in b] for b in stream]
 
@@ -452,12 +721,11 @@ def run_stream(eng, values, voffs, term_bytes, stream, name, op="and",
         check(len(vo) == len(batches[bi]) + 1, f"{name}: batch {bi} shape")
         for qi in rng.choice(len(batches[bi]), size=64, replace=False):
             if lookup:
-                i = stream[bi][qi]
-                want = values[voffs[i]:voffs[i + 1]]
+                want = term_list(stream[bi][qi])
             elif op == "and":
-                want = and_oracle(values, voffs, stream[bi][qi])
+                want = and_oracle(term_list, stream[bi][qi])
             else:
-                want = or_oracle(values, voffs, stream[bi][qi])
+                want = or_oracle(term_list, stream[bi][qi])
             got = vals[vo[qi]:vo[qi + 1]]
             if prefix_p:
                 check(out[bi][2][qi] == len(want),
@@ -521,6 +789,85 @@ def phase_main(torch, args, device="cuda"):
     return eng, terms_mat, values, voffs
 
 
+def phase_delta_setup(torch, eng, terms_mat, values, voffs, term_bytes,
+                      seed):
+    """Phase 5 delta setup: the delta tier's tables (gen_delta) built and
+    uploaded as _try_delta_refresh builds them, and the serving state that
+    refresh would publish; plus the oracle over the union of both tiers."""
+    from inverted_index_2_tpu_torch.models.snapshot import (
+        build_host_tables, upload_tables)
+
+    t0 = time.perf_counter()
+    mat, ids, dvals, dvoffs, new = gen_delta(terms_mat, values, voffs,
+                                             DELTA_TERMS, seed)
+    t1 = time.perf_counter()
+    dt = build_host_tables(mat.tobytes(),
+                           np.arange(len(mat) + 1, dtype=np.int64) * 12,
+                           dvals, dvoffs)
+    dsnap = upload_tables(dt, device=eng.device)
+    int(dsnap.blocks[-1, 0])  # waits for the upload
+    t2 = time.perf_counter()
+    n_main = len(terms_mat)
+    dmap = {int(i): dvals[dvoffs[k]:dvoffs[k + 1]] for k, i in enumerate(ids)}
+
+    def term_list(i):
+        base = (values[voffs[i]:voffs[i + 1]] if i < n_main
+                else np.zeros(0, np.uint32))
+        extra = dmap.get(int(i))
+        return base if extra is None else np.union1d(base, extra).astype(
+            np.uint32)
+
+    state = eng._state.replace(delta=dsnap, delta_tables=dt)
+    print(f"[phase 5] delta: {len(mat)} terms ({int((ids < n_main).sum())} "
+          f"grown main terms, {len(new)} new), {len(dvals)} postings "
+          f"(generate {t1 - t0:.4f} s, host tables and upload "
+          f"{t2 - t1:.4f} s); ladder over both tiers "
+          f"{eng._levels(state)}")
+    return {"state": state, "snap": dsnap, "tables": dt,
+            "term_list": term_list, "n_terms": n_main + len(new),
+            "term_bytes": term_bytes + [t.tobytes() for t in new]}
+
+
+def phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive):
+    """Phase 5, the delta window: the delta published as refresh publishes
+    it, then the dual AND stream over uniform and Zipf batches, OR pages,
+    full-result OR and lookup over the union vocabulary, sampled results
+    against the per-term union oracle, and one profiled dual AND pass."""
+    eng._publish(eng._state.replace(delta=delta["snap"],
+                                    delta_tables=delta["tables"]))
+    check(eng.delta is not None, "the delta was not published")
+    tl, tb = delta["term_list"], delta["term_bytes"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dub, q_du = drive("dual and uniform", lambda: run_stream(
+        eng, tl, tb, d_uniform, "dual AND uniform"))
+    dzb, q_dz = drive("dual and zipf", lambda: run_stream(
+        eng, tl, tb, d_zipf, "dual AND zipf"))
+    _, q_dp = drive("dual or pages", lambda: run_stream(
+        eng, tl, tb, d_uniform, f"dual OR pages P={PAGE_P}", op="or",
+        prefix_p=PAGE_P))
+    _, q_do = drive("dual or", lambda: run_stream(
+        eng, tl, tb, d_uniform[:1], "dual OR", op="or", reps=2))
+    pick = np.random.default_rng(29).choice(delta["n_terms"], size=BATCH,
+                                            replace=False)
+    t1 = time.perf_counter()
+    got = drive("dual lookup", lambda: eng.lookup([tb[i] for i in pick]))
+    dt = time.perf_counter() - t1
+    n = min(512, BATCH)
+    for j in np.random.default_rng(31).choice(BATCH, size=n, replace=False):
+        check(got[j] is not None and np.array_equal(got[j], tl(pick[j])),
+              f"dual lookup of term {pick[j]} differs from the union")
+    print(f"[phase 5] dual lookup: {BATCH} terms in {dt:.4f} s; {n} sampled "
+          f"lists equal the union of both tiers")
+    print(f"[phase 5] delta window median QPS: dual AND uniform {q_du:.1f}, "
+          f"dual AND zipf {q_dz:.1f}, dual OR pages {q_dp:.1f}, dual OR "
+          f"{q_do:.1f}; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        dub, "and", columnar=True, depth=4), "dual AND uniform")
+    print(f"[phase 5] delta window took {time.perf_counter() - t0:.4f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--terms", type=int, default=200_000,
@@ -543,7 +890,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     from inverted_index_2_tpu_torch.ops import (
-        _build, cuda_decode, cuda_fused, cuda_sort)
+        _build, cuda_bool, cuda_decode, cuda_fused, cuda_sort)
 
     t0 = time.perf_counter()
     _build.library()
@@ -560,13 +907,18 @@ def main(argv=None) -> int:
     term_bytes = [terms_mat[i].tobytes() for i in range(len(terms_mat))]
     uniform_b = [[[term_bytes[i] for i in q] for q in b] for b in uniform[:1]]
 
+    def main_list(i):
+        return values[voffs[i]:voffs[i + 1]]
+
     kern = phase_kernels(torch, eng, terms_mat, uniform_b)
     phase_engine_small(torch, "cuda")
+    phase_refresh(torch, "cuda")
 
     # phase 5: the main paths; each path's kernel launches are counted from
     # 0 just before it and read just after
     counters = {"decode_postings": cuda_decode.decode_postings,
                 "fused_and": cuda_fused.fused_and,
+                "intersect_many": cuda_bool.intersect_many,
                 "sort_rows": cuda_sort.sort_rows}
     launches = {name: 0 for name in counters}
     per_path = {}
@@ -582,11 +934,12 @@ def main(argv=None) -> int:
             launches[name] += n
         return out
 
+    t_main = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     ub, qps_u = drive("and uniform", lambda: run_stream(
-        eng, values, voffs, term_bytes, uniform, "AND uniform"))
+        eng, main_list, term_bytes, uniform, "AND uniform"))
     zb, qps_z = drive("and zipf", lambda: run_stream(
-        eng, values, voffs, term_bytes, zipf, "AND zipf"))
+        eng, main_list, term_bytes, zipf, "AND zipf"))
     pick = np.random.default_rng(args.seed + 2).choice(
         len(terms_mat), size=BATCH, replace=False)
     t0 = time.perf_counter()
@@ -594,34 +947,26 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
     for j in np.random.default_rng(3).choice(BATCH, size=512, replace=False):
         i = pick[j]
-        check(np.array_equal(got[j], values[voffs[i]:voffs[i + 1]]),
+        check(np.array_equal(got[j], main_list(i)),
               f"lookup of term {i} differs from the corpus")
     n_long = int((np.diff(voffs)[pick] > L_MAIN).sum())
     print(f"[phase 5] lookup: {BATCH} terms in {dt:.4f} s ({n_long} longer "
           f"than L re-served); 512 sampled lists equal the corpus")
     orb, qps_or = drive("or uniform", lambda: run_stream(
-        eng, values, voffs, term_bytes, uniform[:2], "OR uniform", op="or"))
+        eng, main_list, term_bytes, uniform[:2], "OR uniform", op="or"))
     orzb, qps_orz = drive("or zipf", lambda: run_stream(
-        eng, values, voffs, term_bytes, zipf[:2], "OR zipf", op="or"))
+        eng, main_list, term_bytes, zipf[:2], "OR zipf", op="or"))
     pgb, qps_pg = drive("or pages", lambda: run_stream(
-        eng, values, voffs, term_bytes, uniform, f"OR pages P={PAGE_P}",
+        eng, main_list, term_bytes, uniform, f"OR pages P={PAGE_P}",
         op="or", prefix_p=PAGE_P, depth=4))
     first_terms = [[q[0] for q in b] for b in uniform[:4]]
     lkb, qps_lk = drive("lookup_staged", lambda: run_stream(
-        eng, values, voffs, term_bytes, first_terms, "lookup_staged",
+        eng, main_list, term_bytes, first_terms, "lookup_staged",
         lookup=True, depth=3))
     print(f"[phase 5] median QPS: AND uniform {qps_u:.1f}, AND zipf "
           f"{qps_z:.1f}, OR uniform {qps_or:.1f}, OR zipf {qps_orz:.1f}, "
           f"OR pages {qps_pg:.1f}, lookup_staged {qps_lk:.1f}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    print(f"[phase 5] kernel launches per path {per_path}; total {launches}")
-    for path, name in (("and uniform", "fused_and"), ("lookup",
-                                                      "decode_postings"),
-                       ("or uniform", "sort_rows"), ("or zipf", "sort_rows"),
-                       ("or pages", "sort_rows"),
-                       ("lookup_staged", "sort_rows")):
-        check(per_path[path][name] > 0,
-              f"the {path} path never launched {name}")
     profile_stream(torch, lambda: eng.boolean_staged(
         ub, "and", columnar=True, depth=4), "AND uniform")
     profile_stream(torch, lambda: eng.boolean_staged(
@@ -634,16 +979,49 @@ def main(argv=None) -> int:
         pgb, "or", columnar=True, depth=4, prefix_p=PAGE_P), "OR pages")
     profile_stream(torch, lambda: eng.lookup_staged(
         lkb, columnar=True, depth=3), "lookup_staged")
+    print(f"[phase 5] main tier paths took {time.perf_counter() - t_main:.4f} s")
+
+    # the delta tier is made after the main tier's paths, so those run in
+    # the same process state as before it existed; K3's phase-3 check
+    # needs the delta's lists and runs here
+    delta = phase_delta_setup(torch, eng, terms_mat, values, voffs,
+                              term_bytes, args.seed + 5)
+    d_uniform = uniform_stream(rng, delta["n_terms"], N_DUAL_BATCHES)
+    d_zipf = zipf_stream(rng, delta["n_terms"], N_DUAL_BATCHES)
+    d_uniform_b = [[[delta["term_bytes"][i] for i in q] for q in b]
+                   for b in d_uniform]
+    kern["intersect_many"] = phase_intersect(torch, eng, delta["state"],
+                                             d_uniform_b)
+    del d_uniform_b
+    phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive)
+    print(f"[phase 5] kernel launches per path {per_path}; total {launches}")
+    for path, names in (
+            ("and uniform", ("fused_and",)), ("lookup", ("decode_postings",)),
+            ("or uniform", ("sort_rows",)), ("or zipf", ("sort_rows",)),
+            ("or pages", ("sort_rows",)), ("lookup_staged", ("sort_rows",)),
+            ("dual and uniform", ("decode_postings", "intersect_many",
+                                  "sort_rows")),
+            ("dual and zipf", ("decode_postings", "intersect_many",
+                               "sort_rows")),
+            ("dual or pages", ("decode_postings", "sort_rows")),
+            ("dual or", ("decode_postings", "sort_rows")),
+            ("dual lookup", ("decode_postings",))):
+        for name in names:
+            check(per_path[path][name] > 0,
+                  f"the {path} path never launched {name}")
 
     src = "inverted_index_2_tpu_torch/csrc/"
     meta = {"decode_postings": (src + "decode_postings.cu",
                                 "inverted_index_2_tpu/ops/pallas_decode.py:81"),
             "fused_and": (src + "fused_and.cu",
                           "inverted_index_2_tpu/ops/pallas_fused.py:380"),
+            "intersect_many": (src + "intersect.cu",
+                               "inverted_index_2_tpu/ops/pallas_bool.py:113"),
             "sort_rows": (src + "sort_rows.cu",
                           "inverted_index_2_tpu/ops/pallas_sort.py:86")}
     rows = []
-    for name in ("decode_postings", "fused_and", "sort_rows"):
+    for name in ("decode_postings", "fused_and", "intersect_many",
+                 "sort_rows"):
         err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]
         rows.append({"name": name, "route": "cuda", "source": meta[name][0],
                      "replaces": meta[name][1], "launches": launches[name],

@@ -1,5 +1,5 @@
 """Batched query serving over a frozen snapshot on a torch device
-(counterpart of models/query_engine.py; main tier).
+(counterpart of models/query_engine.py).
 
 QueryEngine.from_index(index, L) freezes the index into compact host
 tables, uploads them to the card (one gather expands the block arena), and
@@ -17,23 +17,43 @@ and sort through K4; they serve OR, pagination (prefix_p) and staged
 lookup. OR serves on the device: the JAX engine's host route is ROADMAP
 queue 1 item 7.
 
+refresh(index) keeps the engine current while the index takes writes: an
+additive change becomes a small DELTA snapshot beside the untouched main
+one, and while a delta is live every boolean and staged call serves the
+padded dual step (steps.boolean_step_dual: K1 decode of both tiers, the
+pair union, the AND through K3), and lookup unions both tiers. A delta
+above DELTA_FRACTION of main folds into a new main; a compaction rebuilds.
+
 What the JAX engine does beyond this slice raises NotImplementedError that
-names its ROADMAP item: the delta tier and refresh (item 6), the host route
-(item 7), prefix and range reads, checkpoints and warmup (item 8).
+names its ROADMAP item: the host route (item 7), prefix and range reads,
+checkpoints and warmup (item 8).
 """
 from __future__ import annotations
 
 import itertools as it
 import os
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..codec import keys as keys_mod
+from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import MAX_LEVEL
+from ..shard import merge_views
 from ..utils.u32 import to_device, to_numpy_u32
-from .snapshot import HostTables, IndexSnapshot, snapshot_tables, upload_tables
+from .snapshot import (
+    HostTables,
+    IndexSnapshot,
+    _collect_removed,
+    _index_fingerprint,
+    _SnapshotTier,
+    build_host_tables,
+    snapshot_new_segments,
+    snapshot_tables,
+    upload_tables,
+)
 from .staged import StagedStreamsMixin
 from .steps import (
     _RESERVE_BUDGET,
@@ -43,37 +63,84 @@ from .steps import (
     _round_up,
     boolean_fused_staged_step,
     boolean_fused_step,
+    boolean_step_dual,
     lookup_step,
 )
 
 
 class ServingState:
-    """Everything one serve call reads: the snapshot (with its tombstones)
-    and the retained host tables. Entry points capture one reference up
-    front, so a later refresh (ROADMAP queue 1 item 6) can publish a new
-    state with one assignment."""
+    """One immutable bundle of everything a serve path reads: the main and
+    delta snapshots, the tombstone array, the retained host tables and the
+    freeze fingerprints. refresh() builds a whole new bundle and publishes
+    it with one reference assignment, and every entry point captures one
+    reference up front, so a reader sees the old state or the new one,
+    never a new main beside a stale delta or stale tombstones."""
 
-    __slots__ = ("snap", "tables")
+    __slots__ = ("snap", "delta", "removed", "tables", "delta_tables",
+                 "fingerprint", "main_fp", "_removed_host")
 
     def __init__(self, snap: IndexSnapshot,
-                 tables: Optional[HostTables] = None):
+                 delta: Optional[IndexSnapshot] = None,
+                 removed: Optional[torch.Tensor] = None,
+                 tables: Optional[HostTables] = None,
+                 delta_tables: Optional[HostTables] = None,
+                 fingerprint=None, main_fp=None,
+                 removed_host: Optional[np.ndarray] = None):
         self.snap = snap
+        self.delta = delta
+        self.removed = removed
         self.tables = tables
+        self.delta_tables = delta_tables
+        self.fingerprint = fingerprint
+        self.main_fp = main_fp
+        self._removed_host = removed_host
 
-    def max_count(self) -> int:
-        return self.snap.max_count
+    def replace(self, **kw) -> "ServingState":
+        """A copy with the given fields replaced (the rest shared)."""
+        args = {"delta": self.delta, "removed": self.removed,
+                "tables": self.tables, "delta_tables": self.delta_tables,
+                "fingerprint": self.fingerprint, "main_fp": self.main_fp,
+                "removed_host": self._removed_host}
+        snap = kw.pop("snap", self.snap)
+        args.update(kw)
+        return ServingState(snap, **args)
 
-    def width(self) -> int:
-        return self.snap.width
+    def removed_host(self) -> Optional[np.ndarray]:
+        """Host copy of the tombstone array (lazy; racing calls compute the
+        same value)."""
+        rh = self._removed_host
+        if rh is None and self.removed is not None:
+            rh = to_numpy_u32(self.removed)
+            self._removed_host = rh
+        return rh
 
     def host_ready(self) -> bool:
-        return self.tables is not None
+        """Retained host tables cover both tiers."""
+        return self.tables is not None and (
+            self.delta is None or self.delta_tables is not None)
+
+    def max_count(self) -> int:
+        m = self.snap.max_count
+        if self.delta is not None:
+            m += self.delta.max_count  # a term's union can reach the sum
+        return m
+
+    def width(self) -> int:
+        """Query key width across the live tiers."""
+        w = self.snap.width
+        if self.delta is not None:
+            w = max(w, self.delta.width)
+        return w
 
 
 class QueryEngine(StagedStreamsMixin):
     """Batched lookup, AND and OR serving over a frozen IndexSnapshot on
     `device` (the card unless the caller asks for the CPU). L is the
     fast-path pad: longer lists re-serve exactly at a ladder level."""
+
+    # a delta with more terms than this fraction of main folds into a new
+    # main (the serving analogue of an LSM compaction)
+    DELTA_FRACTION = 0.25
 
     # one-shot boolean() batches at least this large go through the staged
     # stream (same contract, pipelined)
@@ -97,7 +164,12 @@ class QueryEngine(StagedStreamsMixin):
             raise ValueError(f"snapshot lives on {have}, engine device is "
                              f"{want}")
         self.device = have
-        self._state = ServingState(snapshot, tables=tables)
+        self._state = ServingState(
+            snapshot, removed=snapshot.removed, tables=tables,
+            removed_host=tables.removed if tables is not None else None)
+        # writers (refresh, promotion) serialize here; serve paths never
+        # take it: they read self._state once and run on that bundle
+        self._refresh_lock = threading.Lock()
         self.L = max(128, _round_up(L, 128))
         self._staged_levels_cache = None
         self.last_stream_stats = None  # set by boolean_staged
@@ -107,18 +179,159 @@ class QueryEngine(StagedStreamsMixin):
                    keep_tables: bool = True, *, device="cuda"):
         """Freeze `index` and serve it on `device`. keep_tables retains the
         compact host tables (the concat classes then resolve on the
-        host)."""
+        host). The freeze's fingerprint is recorded for refresh()."""
+        fp = _index_fingerprint(index, apply_removed)
         t = snapshot_tables(index, apply_removed=apply_removed)
-        return cls(upload_tables(t, device=device), L=L,
-                   tables=t if keep_tables else None, device=device)
+        eng = cls(upload_tables(t, device=device), L=L,
+                  tables=t if keep_tables else None, device=device)
+        eng._publish(eng._state.replace(fingerprint=fp, main_fp=fp))
+        return eng
+
+    # -- serving-state access (introspection and tests; serve paths read
+    # self._state once and pass it down) -----------------------------------
 
     @property
     def snap(self) -> IndexSnapshot:
         return self._state.snap
 
     @property
+    def delta(self) -> Optional[IndexSnapshot]:
+        return self._state.delta
+
+    @property
     def tables(self) -> Optional[HostTables]:
         return self._state.tables
+
+    @property
+    def delta_tables(self) -> Optional[HostTables]:
+        return self._state.delta_tables
+
+    def _publish(self, st: ServingState) -> None:
+        """Swap the serving state: one reference assignment, atomic under
+        the GIL, so a reader in flight keeps the whole old state."""
+        self._state = st
+
+    # -- refresh -----------------------------------------------------------
+
+    def refresh(self, index, apply_removed: bool = False) -> bool:
+        """Bring the engine up to date with the live index; False when it
+        is unchanged since the last freeze. Queries keep serving the old
+        state until the new one is published.
+
+        An additive change (every segment of the main freeze still live,
+        and, under apply_removed, the tombstones unchanged) freezes only
+        the new segments into a DELTA snapshot; main is not touched. A
+        delta above DELTA_FRACTION of main folds both tiers into a new
+        main (_promote_delta); a compaction, or a tombstone change under
+        apply_removed, rebuilds from the index. The key width is derived
+        anew on every rebuild, so longer new terms cannot alias.
+
+        Unlike the JAX engine, no checkpoint is saved on a rebuild:
+        checkpoints are ROADMAP queue 1 item 8."""
+        with self._refresh_lock:
+            base = self._state
+            fp = _index_fingerprint(index, apply_removed)
+            if fp == base.fingerprint:
+                return False
+            if base.fingerprint is not None and self._try_delta_refresh(
+                    index, fp, apply_removed):
+                return True
+            t = snapshot_tables(index, apply_removed=apply_removed)
+            self._publish_main(base, t, fp)
+            return True
+
+    def _publish_main(self, base: ServingState, t: HostTables, fp) -> None:
+        """Publish a new main tier built from tables `t`, with no delta."""
+        snap = upload_tables(t, device=self.device)
+        keep = base.tables is not None
+        self._publish(ServingState(
+            snap, removed=snap.removed, tables=t if keep else None,
+            removed_host=t.removed if keep else None,
+            fingerprint=fp, main_fp=fp))
+
+    def _try_delta_refresh(self, index, fp, apply_removed: bool) -> bool:
+        """The O(delta) refresh; publishes the new state and returns True
+        when it applies. Runs under _refresh_lock."""
+        base = self._state
+        main_fp = base.main_fp
+        if main_fp is None or main_fp[0] != apply_removed:
+            return False
+        main_shards = {k: (segs, rl) for k, segs, rl in main_fp[1]}
+        for key, segs, rl in fp[1]:
+            base_segs, base_rl = main_shards.get(key, ((), 0))
+            if not set(base_segs).issubset(segs):
+                return False  # a main segment was merged away
+            if apply_removed and rl != base_rl:
+                return False  # the purge baseline changed
+        base_map = {k: frozenset(segs) for k, segs, _ in main_fp[1]}
+        # under apply_removed main was purged at build: purge the delta
+        # against the same (unchanged, checked above) tombstones
+        rem = _collect_removed(index) if apply_removed else None
+        keep = base.tables is not None
+        built = snapshot_new_segments(index, base_map, removed=rem,
+                                      with_tables=keep, device=self.device)
+        if built is None:
+            # nothing new survives (e.g. only tombstones): keep the tiers,
+            # refresh the tombstone array below
+            delta, dt = base.delta, base.delta_tables
+        else:
+            delta, dt = built if keep else (built, None)
+            if delta.n_terms > self.DELTA_FRACTION * max(1, base.snap.n_terms):
+                return self._promote_delta(index, fp, apply_removed, delta)
+        removed, removed_host = base.removed, base._removed_host
+        if not apply_removed:
+            removed_host = _collect_removed(index)
+            removed = to_device(removed_host, self.device)
+        self._publish(base.replace(
+            delta=delta, delta_tables=dt, removed=removed,
+            removed_host=removed_host, fingerprint=fp))
+        return True
+
+    def _promote_delta(self, index, fp, apply_removed: bool, delta) -> bool:
+        """Fold an oversized delta into main by merging the two snapshots'
+        own arrays (decoded on the device through K1, one two-way key
+        merge, re-encoded): equal to a rebuild from the index under this
+        path's preconditions (every main segment live; tombstones unchanged
+        under apply_removed), without re-reading a segment."""
+        base = self._state
+        merged = merge_views([_SnapshotTier(base.snap, self),
+                              _SnapshotTier(delta, self)], None)
+        if merged is None:  # both tiers empty
+            return False
+        blob, offsets, values, voffs = merged
+        rem = None if apply_removed else _collect_removed(index)
+        self._publish_main(
+            base, build_host_tables(blob, offsets, values, voffs, rem), fp)
+        return True
+
+    def _decode_indices(self, idx: np.ndarray, s: IndexSnapshot):
+        """Exact postings of dictionary indexes `idx` in snapshot `s`:
+        (values, voffs[n+1]). Rows decode through K1 in batches grouped by
+        the smallest ladder level that holds each row's count."""
+        counts = s.host_counts[idx].astype(np.int64)
+        voffs = np.zeros(len(idx) + 1, dtype=np.int64)
+        np.cumsum(counts, out=voffs[1:])
+        flat = np.empty(int(voffs[-1]), dtype=np.uint32)
+        if len(idx) == 0:
+            return flat, voffs
+        levels = np.array([self.L] + _ladder(self.L, s.max_count),
+                          dtype=np.int64)
+        lvl_idx = np.searchsorted(levels, counts, side="left")
+        for li in np.unique(lvl_idx):
+            lv = int(levels[li])
+            sel = np.nonzero(lvl_idx == li)[0]
+            qb = max(1, _RESERVE_BUDGET // lv)
+            for c0 in range(0, len(sel), qb):
+                ss = sel[c0: c0 + qb]
+                v, _ = decode_postings(s.blocks, s.term_block_start, s.counts,
+                                       self._dev(idx[ss].astype(np.int32)),
+                                       lv)
+                w = min(max(1, int(counts[ss].max())), lv)
+                v = to_numpy_u32(v[:, :w])
+                m = np.arange(w)[None, :] < counts[ss][:, None]
+                dst = (voffs[ss][:, None] + np.arange(w)[None, :])[m]
+                flat[dst] = v[m]
+        return flat, voffs
 
     def _levels(self, st: Optional[ServingState] = None) -> List[int]:
         st = st if st is not None else self._state
@@ -138,9 +351,6 @@ class QueryEngine(StagedStreamsMixin):
     @classmethod
     def from_checkpoint(cls, *a, **kw):
         _not_ported("QueryEngine.from_checkpoint", 8)
-
-    def refresh(self, index, apply_removed: bool = False) -> bool:
-        _not_ported("QueryEngine.refresh (delta tier)", 6)
 
     def warmup(self, *a, **kw):
         _not_ported("QueryEngine.warmup", 8)
@@ -169,18 +379,24 @@ class QueryEngine(StagedStreamsMixin):
                filter_removed: bool = False) -> List[Optional[np.ndarray]]:
         """Exact postings per term (None for misses). filter_removed drops
         tombstoned values. Lists longer than L are re-served at a ladder
-        level, so results are always exact."""
+        level, so results are always exact. With a delta live, a term's
+        result is the union of its rows in both tiers."""
         if not terms:
             return []
         st = self._state
-        return self._exact_rows(st, st.snap, terms, filter_removed)
+        main = self._exact_rows(st, st.snap, terms, filter_removed)
+        if st.delta is None:
+            return main
+        dl = self._exact_rows(st, st.delta, terms, filter_removed)
+        return [b if a is None else a if b is None else np.union1d(a, b)
+                for a, b in zip(main, dl)]
 
     def _exact_rows(self, st: ServingState, s: IndexSnapshot,
                     terms: Sequence[bytes],
                     filter_removed: bool) -> List[Optional[np.ndarray]]:
         if s.n_terms == 0:
             return [None] * len(terms)
-        removed = s.removed if filter_removed else None
+        removed = st.removed if filter_removed else None
         qk = keys_mod.pack_terms(list(terms), width=s.width)
         found, vals, n, raw = self._lookup_on(s, self._dev(qk), removed)
         found = found.cpu().numpy()
@@ -276,13 +492,48 @@ class QueryEngine(StagedStreamsMixin):
         if len(queries) >= self._STAGED_DELEGATE_MIN and st.snap.n_terms > 0:
             return self.boolean_staged(
                 [queries], op, filter_removed, _st=st)[0]
-        if st.snap.n_terms == 0:
+        if st.snap.n_terms == 0 and st.delta is None:
             return [np.zeros(0, np.uint32) for _ in queries]
         qk, kv = self._pack_boolean(st, queries)
-        removed = st.snap.removed if filter_removed else None
-        if op == "and":
-            return self._boolean_fused(st, queries, qk, kv, removed)
-        return self._boolean_concat(st, queries, qk, kv, op, removed)
+        removed = st.removed if filter_removed else None
+        if st.delta is None:
+            if op == "and":
+                return self._boolean_fused(st, queries, qk, kv, removed)
+            return self._boolean_concat(st, queries, qk, kv, op, removed)
+        # delta window: the padded dual step at L, then ladder re-serves of
+        # the rows whose tiers' summed count exceeds L (the JAX engine's
+        # _reserve_ladder: the same batching rule as _drain_levels)
+        run = self._dual_run(st, op, removed)
+        out, oc, need = run(self.L, qk, kv)
+        oc = oc.cpu().numpy()
+        need = need.cpu().numpy()
+        out = to_numpy_u32(out[:, : max(1, int(oc.max(initial=0)))])
+        results: List[Optional[np.ndarray]] = [None] * len(queries)
+        longs = []
+        for i in range(len(queries)):
+            if need[i] <= self.L:
+                results[i] = out[i, : oc[i]].copy()
+            else:
+                longs.append((i, qk[i], int(kv[i]),
+                              self._level_for(int(need[i]), st)))
+        self._drain_levels(longs, run, results.__setitem__)
+        return results
+
+    def _dual_run(self, st: ServingState, op: str, removed):
+        """run(lv, qk, kv) -> (out, oc, need): one pass of the padded dual
+        step at pad lv over the state's main and delta tiers. Queries are
+        packed at st.width() and narrowed to each tier's width."""
+        s, d = st.snap, st.delta
+
+        def run(lv, qk_sub, kv_sub):
+            return boolean_step_dual(
+                s.keys, s.blocks, s.term_block_start, s.counts, s.hash_slots,
+                d.keys, d.blocks, d.term_block_start, d.counts, d.hash_slots,
+                self._dev(_narrow_keys(qk_sub, s.width)),
+                self._dev(_narrow_keys(qk_sub, d.width)),
+                self._dev(kv_sub), lv, op, removed, s.max_probes,
+                d.max_probes)
+        return run
 
     def _fused_run(self, st, lv, qk_sub, kv_sub, removed, small_p: int = 0):
         s = st.snap

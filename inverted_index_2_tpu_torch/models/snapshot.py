@@ -9,7 +9,7 @@ is the same, bit for bit.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -21,7 +21,7 @@ from ..codec import packing
 from ..segment.registry import Segments
 from ..shard import merge_views
 from ..utils.ragged import ragged_gather
-from ..utils.u32 import to_device
+from ..utils.u32 import to_device, to_numpy_u32
 
 # Arena row pitch, in words. Rows start 16-byte aligned at a cost of at most
 # 3 padding words per row; the decode kernels (csrc/) take any pitch.
@@ -223,6 +223,80 @@ def _purge_merged(merged, removed: np.ndarray):
     voffs = np.zeros(int(nz.sum()) + 1, dtype=np.int64)
     np.cumsum(new_counts[nz], out=voffs[1:])
     return nb.tobytes(), offsets, values, voffs
+
+
+def _collect_removed(index) -> np.ndarray:
+    parts = [sh.removed_list.values() for sh in index._snapshot()]
+    return np.sort(np.concatenate(parts)) if parts else np.zeros(0, np.uint32)
+
+
+def snapshot_new_segments(index, base_segments: Dict[str, frozenset],
+                          removed: Optional[np.ndarray] = None,
+                          with_tables: bool = False, *, device="cuda"):
+    """Freeze only the segments not in `base_segments` (shard key ->
+    segment keys): the O(delta) piece of an incremental refresh. None when
+    nothing is new. `removed` (sorted tombstones) purges the delta at build,
+    which apply_removed requires: the main tier was purged, and an unpurged
+    delta would bring removed values back. with_tables=True returns
+    (snapshot, HostTables)."""
+    views, pinned_all = [], []
+    for sh in index._snapshot():
+        pinned = sh.segments.pin_all()
+        pinned_all.append(pinned)
+        base = base_segments.get(sh.get_key(), frozenset())
+        views.extend(s.view for s in pinned
+                     if s.view is not None and s.key not in base)
+    try:
+        merged = merge_views(views, None)
+    finally:
+        for pinned in pinned_all:
+            Segments.release(pinned)
+    if merged is None:
+        return None
+    if removed is not None and len(removed):
+        merged = _purge_merged(merged, removed)
+        if merged is None:
+            return None
+    blob, offsets, values, voffs = merged
+    t = build_host_tables(blob, offsets, values, voffs, None)
+    snap = upload_tables(t, device=device)
+    return (snap, t) if with_tables else snap
+
+
+class _SnapshotTier:
+    """merge_views adapter over a device snapshot: term bytes rebuilt from
+    the key matrix, postings decoded on the device in ladder-grouped
+    batches (engine._decode_indices, K1). Lets the main and delta tiers
+    merge into one without re-reading a segment file: the promotion
+    path."""
+
+    def __init__(self, snap: IndexSnapshot, engine):
+        kb, ko = keys_mod.unpack_keys(to_numpy_u32(snap.keys))
+        self.blob = kb
+        self.offsets = np.asarray(ko, dtype=np.int64)
+        self.n_terms = snap.n_terms
+        self.max_term_len = (int(np.diff(self.offsets).max())
+                             if snap.n_terms else 0)
+        self._vals, self._voffs = engine._decode_indices(
+            np.arange(snap.n_terms), snap)
+
+    def keys(self, W: int) -> np.ndarray:
+        return keys_mod.pack_blob(self.blob, self.offsets, W)
+
+    def decode_all(self):
+        return self._vals, np.diff(self._voffs), self._voffs
+
+
+def _index_fingerprint(index, apply_removed: bool):
+    """Cheap identity of the index's visible state (segment keys and
+    tombstone batch counts per shard) for refresh no-op detection. The
+    tombstone counts always count: without apply_removed they feed the
+    engine's filter_removed array, so a tombstone-only change refreshes."""
+    parts = []
+    for sh in index._snapshot():
+        segs = tuple(s.key for s in sh.segments.snapshot())
+        parts.append((sh.get_key(), segs, len(sh.removed_list)))
+    return (apply_removed, tuple(parts))
 
 
 def snapshot_tables(index, apply_removed: bool = False,

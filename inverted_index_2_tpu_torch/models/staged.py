@@ -4,11 +4,13 @@ into QueryEngine.
 Batch i+depth is packed and launched before batch i's results are read:
 the device-to-host copies of each batch go into pinned buffers with
 non_blocking copies behind the batch's kernels, and harvest waits on the
-CUDA event recorded after them, so host packing overlaps device work. Two
-streams:
+CUDA event recorded after them, so host packing overlaps device work.
+Three streams:
   * AND: the fused stream through K2 (the main branch of boolean_staged);
   * OR, pagination (prefix_p) and lookup_staged: the concat-class stream
-    (_staged_concat_stream), whose row and compaction sorts run through K4.
+    (_staged_concat_stream), whose row and compaction sorts run through K4;
+  * every op while a delta tier is live: the dual stream
+    (_staged_dual_stream), the padded dual step with its AND through K3.
 """
 from __future__ import annotations
 
@@ -99,6 +101,8 @@ class StagedStreamsMixin:
         K2; the rare follow-ups (small-P overflow, ladder re-serves, bases
         beyond the level cap) are deferred and served once for the whole
         stream. OR and any prefix_p stream through the concat classes.
+        With a delta tier live, every batch streams through the padded dual
+        step (_staged_dual_stream), AND through K3.
 
         batches: iterable of batches, each a sequence of term lists or a
         columnar (blob, offsets[T+1], qoffs[Q+1]) triple. columnar=False
@@ -114,7 +118,10 @@ class StagedStreamsMixin:
             raise ValueError("prefix_p requires columnar=True")
         batches = list(batches)
         st = _st if _st is not None else self._state
-        removed = st.snap.removed if filter_removed else None
+        removed = st.removed if filter_removed else None
+        if st.delta is not None:
+            return self._staged_dual_stream(st, batches, op, removed, depth,
+                                            columnar, prefix_p)
         if st.snap.n_terms == 0:
             return [self._empty_index_batch(b, op, filter_removed, columnar,
                                             prefix_p) for b in batches]
@@ -224,6 +231,88 @@ class StagedStreamsMixin:
             elif normal[u]:
                 rows[i] = small[u, : oc[u]].copy()
         return rows
+
+    # -- the delta window ---------------------------------------------------
+
+    def _staged_dual_stream(self, st, batches, op: str, removed, depth: int,
+                            columnar: bool, prefix_p: int):
+        """Depth-pipelined stream over the main + delta pair (the padded
+        dual step, steps.boolean_step_dual): each batch's pass at L is
+        launched before batch i-depth is harvested, and the ladder
+        re-serves of every batch drain once at the end (_drain_levels).
+        prefix_p slices each result row on the device, so a page ships
+        (Q, P) values beside the true counts."""
+        P = int(prefix_p)
+        run = self._dual_run(st, op, removed)
+        fetched: List = [None] * len(batches)
+        longs = []
+        pend = deque()
+
+        def harvest(item):
+            bi, nq, qk, kv, out, pending = item
+            got = _finish_host_copy(pending)
+            if P:
+                out_h, oc_h, need_h = got
+                out_h = out_h.view(np.uint32)
+            else:
+                oc_h, need_h = got
+                out_h = to_numpy_u32(
+                    out[:, : max(1, int(oc_h[:nq].max(initial=0)))])
+            fetched[bi] = (nq, out_h, oc_h)
+            for i in np.nonzero(need_h[:nq] > self.L)[0]:
+                longs.append(((bi, int(i)), qk[i], int(kv[i]),
+                              self._level_for(int(need_h[i]), st)))
+
+        for bi, b in enumerate(batches):
+            nq, qk, kv = self._batch_pack(st, b)
+            if nq == 0:
+                fetched[bi] = (0, None, None)
+                continue
+            out, oc, need = run(self.L, qk, kv)
+            if P:
+                pending = _start_host_copy([out[:, :P].contiguous(), oc,
+                                            need])
+                out = None
+            else:
+                pending = _start_host_copy([oc, need])
+            pend.append((bi, nq, qk, kv, out, pending))
+            if len(pend) > depth:
+                harvest(pend.popleft())
+        while pend:
+            harvest(pend.popleft())
+
+        overrides: Dict[int, Dict[int, np.ndarray]] = {}
+
+        def setter(pos, v):
+            overrides.setdefault(pos[0], {})[pos[1]] = v
+
+        self._drain_levels(longs, run, setter)
+        nqs = sum(f[0] for f in fetched)
+        self.last_stream_stats = {"queries": nqs, "served_rows": nqs,
+                                  "small_p_overflow": 0,
+                                  "ladder_reserve": len(longs), "concat": 0}
+        results = []
+        for bi in range(len(batches)):
+            nq, out_h, oc_h = fetched[bi]
+            if nq == 0:
+                results.append(_empty_result(columnar, P))
+                continue
+            ovr = overrides.get(bi, {})
+            if P:
+                counts = oc_h[:nq].astype(np.int64)
+                rows = []
+                for i in range(nq):
+                    if i in ovr:
+                        counts[i] = len(ovr[i])
+                        rows.append(ovr[i][:P])
+                    else:
+                        rows.append(out_h[i, : min(int(oc_h[i]), P)])
+                results.append(_rows_to_columnar(rows) + (counts,))
+                continue
+            rows = [ovr[i] if i in ovr else out_h[i, : oc_h[i]].copy()
+                    for i in range(nq)]
+            results.append(_rows_to_columnar(rows) if columnar else rows)
+        return results
 
     # -- the concat classes -------------------------------------------------
 

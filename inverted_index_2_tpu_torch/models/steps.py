@@ -1,5 +1,5 @@
 """Serving steps (functions of snapshot tensors), the result wire codec and
-small shared helpers (counterpart of models/steps.py, main tier)."""
+small shared helpers (counterpart of models/steps.py)."""
 from __future__ import annotations
 
 from typing import List
@@ -10,6 +10,7 @@ import torch
 from ..codec import hashing
 from ..ops import setops
 from ..ops.concat_bool import boolean_concat_step, resolve_step
+from ..ops.cuda_bool import intersect_many
 from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import fused_and, reorder_smallest_base
 from ..ops.dict_search import resolve
@@ -30,6 +31,94 @@ def lookup_step(keys, blocks, term_block_start, counts, qkeys, L: int,
     if removed is not None and removed.shape[0] > 0:
         vals, n = setops.filter_removed(vals, n, removed)
     return found, vals, n, raw
+
+
+def _decode_tier(keys, blocks, term_block_start, counts, slots, max_probes,
+                 qflat, L: int):
+    """Resolve packed terms (T, W+1) in one tier and decode their first L
+    postings through K1: (vals (T, L) u32 bits, raw counts (T,), 0 for a
+    miss)."""
+    idx, found = resolve(keys, qflat, slots, max_probes)
+    vals, raw = decode_postings(blocks, term_block_start, counts,
+                                idx.to(torch.int32), L)
+    return vals, torch.where(found, raw, 0)
+
+
+def _set_op(lists, ncnt, k_valid, op: str):
+    """AND through K3, OR through the plain union (row sorts on K4)."""
+    if op == "and":
+        return intersect_many(lists, ncnt, k_valid)
+    if op == "or":
+        return setops.union_many(lists, ncnt, k_valid)
+    raise ValueError(f"op {op!r}: want 'and' or 'or'")
+
+
+def _max_live(raw_qk, k_valid):
+    """Largest raw count among each query's present terms (Q,) int32."""
+    K = raw_qk.shape[1]
+    kmask = (torch.arange(K, device=raw_qk.device)[None, :]
+             < k_valid.to(torch.int64)[:, None])
+    return torch.where(kmask, raw_qk, 0).max(dim=1).values.to(torch.int32)
+
+
+def boolean_step(keys, blocks, term_block_start, counts, qkeys, k_valid,
+                 L: int, op: str, removed=None, slots=None,
+                 max_probes: int = 0):
+    """Padded single-tier boolean step: qkeys (Q, K, W+1), k_valid (Q,).
+    Each term's first L postings are decoded through K1, then AND (K3) or
+    OR over the (Q, K, L) lists. Returns (out, oc, need): need is the
+    largest raw count among the present terms, and need > L means a list
+    was clipped, so the caller re-serves the query at a ladder level."""
+    Q, K, Wp1 = qkeys.shape
+    vals, raw = _decode_tier(keys, blocks, term_block_start, counts, slots,
+                             max_probes, qkeys.reshape(Q * K, Wp1), L)
+    raw_qk = raw.reshape(Q, K)
+    out, oc = _set_op(vals.reshape(Q, K, L), raw_qk.clamp(max=L), k_valid,
+                      op)
+    if removed is not None and removed.shape[0] > 0:
+        out, oc = setops.filter_removed(out, oc, removed)
+    return out, oc, _max_live(raw_qk, k_valid)
+
+
+def dual_lists(keys1, blocks1, tbs1, counts1, slots1,
+               keys2, blocks2, tbs2, counts2, slots2,
+               qkeys1, qkeys2, L: int, max_probes1: int = 0,
+               max_probes2: int = 0):
+    """The lists the dual step's set op runs on: each term's first L
+    postings in each tier (K1), united per term (union_many, row sorts on
+    K4). Returns (lists (Q, K, 2L) u32 bits, counts (Q, K), raw (Q, K) the
+    summed true counts of both tiers)."""
+    Q, K = qkeys1.shape[:2]
+    v1, r1 = _decode_tier(keys1, blocks1, tbs1, counts1, slots1,
+                          max_probes1, qkeys1.reshape(Q * K, -1), L)
+    v2, r2 = _decode_tier(keys2, blocks2, tbs2, counts2, slots2,
+                          max_probes2, qkeys2.reshape(Q * K, -1), L)
+    pair = torch.stack([v1, v2], dim=1)
+    del v1, v2
+    pcnt = torch.stack([r1.clamp(max=L), r2.clamp(max=L)], dim=1)
+    two = torch.full((Q * K,), 2, dtype=torch.int32, device=pair.device)
+    u, uc = setops.union_many(pair, pcnt, two)
+    return u.reshape(Q, K, 2 * L), uc.reshape(Q, K), (r1 + r2).reshape(Q, K)
+
+
+def boolean_step_dual(keys1, blocks1, tbs1, counts1, slots1,
+                      keys2, blocks2, tbs2, counts2, slots2,
+                      qkeys1, qkeys2, k_valid, L: int, op: str, removed=None,
+                      max_probes1: int = 0, max_probes2: int = 0):
+    """boolean_step over a main + delta snapshot pair: each term's postings
+    are the union of its rows in both tiers (dual_lists), then the set op
+    runs on the (Q, K, 2L) lists (AND through K3). qkeys1 / qkeys2 are the
+    queries packed at each tier's width. Returns (out (Q, 2L) for AND,
+    (Q, 2KL) for OR; oc; need), need summing both tiers' raw counts, so a
+    re-serve level covers the union."""
+    lists, ncnt, raw = dual_lists(
+        keys1, blocks1, tbs1, counts1, slots1, keys2, blocks2, tbs2, counts2,
+        slots2, qkeys1, qkeys2, L, max_probes1, max_probes2)
+    out, oc = _set_op(lists, ncnt, k_valid, op)
+    del lists
+    if removed is not None and removed.shape[0] > 0:
+        out, oc = setops.filter_removed(out, oc, removed)
+    return out, oc, _max_live(raw, k_valid)
 
 
 def _compact_small(flat, P: int):

@@ -1,5 +1,5 @@
-"""Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND, K4
-row sort).
+"""Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND, K3
+sorted-set AND, K4 row sort).
 
 At first use (never at import) nvcc compiles every `csrc/*.cu` for Hopper
 (`sm_90a`), one process per source in parallel, and links them into one
@@ -99,6 +99,8 @@ def _bind(lib):
     lib.tpi_fused_and.restype = i
     lib.tpi_sort_rows.argtypes = [vp, i64, vp, i64, i64, vp]
     lib.tpi_sort_rows.restype = i
+    lib.tpi_intersect.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp]
+    lib.tpi_intersect.restype = i
     lib.tpi_error_string.argtypes = [i]
     lib.tpi_error_string.restype = ctypes.c_char_p
     return lib

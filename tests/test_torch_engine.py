@@ -178,7 +178,6 @@ def test_outside_the_slice_raises(corpus):
     lists, terms, queries, removed, port, jax_eng = corpus
     for call in (lambda: port.lookup_host(queries[0]),
                  lambda: port.boolean_host(queries, "or"),
-                 lambda: port.refresh(None),
                  lambda: port.read_range()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

@@ -1,6 +1,7 @@
-"""Kernels K1 (decode), K2 (fused AND) and K4 (row sort) on the card
-against their plain torch versions, and the engine on CUDA against the
-engine on the CPU and a numpy oracle (AND, OR, pagination, staged lookup).
+"""Kernels K1 (decode), K2 (fused AND), K3 (sorted-set AND) and K4 (row
+sort) on the card against their plain torch versions, and the engine on
+CUDA against the engine on the CPU and a numpy oracle (AND, OR,
+pagination, staged lookup, and all of them with a delta tier live).
 
 Marked `gpu`: they need an NVIDIA card and nvcc and skip elsewhere. This
 file imports no `jax`, so on a machine without it run it with
@@ -12,8 +13,15 @@ import torch
 from inverted_index_2_tpu_torch import QueryEngine
 from inverted_index_2_tpu_torch.models import query_engine as port_qe
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
-from inverted_index_2_tpu_torch.ops import cuda_decode, cuda_fused, cuda_sort
+from inverted_index_2_tpu_torch.ops import (
+    cuda_bool,
+    cuda_decode,
+    cuda_fused,
+    cuda_sort,
+    setops,
+)
 from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
+from inverted_index_2_tpu_torch.utils.u32 import from_i64
 from inverted_index_2_tpu_torch.ops.cuda_fused import (
     MAX_LEVEL,
     fused_and,
@@ -198,3 +206,128 @@ def test_engine_cuda_or_and_pages_match_oracle(cuda, monkeypatch):
         for i, w in enumerate(lists + [np.zeros(0, np.uint32)]):
             assert np.array_equal(rows[i], w)
     assert cuda_sort.sort_rows.launches > k4
+
+
+def intersect_input(dev, seed, Q, K, W):
+    """K3's inputs as callers make them: (Q, K, W) lists sorted unique in
+    u32 order within their counts and random garbage past them, some
+    spanning the sign bit, some empty or full, k_valid 1..K with pad rows
+    of k_valid 0 and count 0, and a genuine 0xFFFFFFFF as the last member
+    of every present list of every third query."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64)
+
+    off = ints(0, 2**32 - 4 * W - 2, (Q, 1, 1))
+    off[1::4] = 2**31 - 2 * W
+    vals = off + torch.cumsum(ints(1, 4, (Q, K, W)), dim=2)
+    counts = ints(0, W + 1, (Q, K))
+    counts[::5] = W
+    counts[2::7, 1] = 0
+    kv = ints(1, K + 1, (Q,))
+    kv[3::11] = 0
+    counts[3::11] = 0
+    ff = torch.zeros((Q, 1), dtype=torch.bool, device=dev)
+    ff[::3] = True
+    last = (counts - 1).clamp(min=0)[..., None]
+    vals.scatter_(2, last, torch.where(ff[..., None] & (counts > 0)[..., None],
+                                       2**32 - 1, vals.gather(2, last)))
+    lanes = torch.arange(W, device=dev)[None, None, :]
+    vals = torch.where(lanes < counts[..., None], vals,
+                       ints(0, 2**32, (Q, K, W)))
+    return (from_i64(vals), counts.to(torch.int32).contiguous(),
+            kv.to(torch.int32))
+
+
+@pytest.mark.parametrize("Q,K,W", [(8192, 8, 4096), (256, 8, 16384),
+                                   (16, 4, 131072), (64, 8, 256)])
+def test_intersect_kernel_matches_plain(cuda, Q, K, W):
+    lists, counts, kv = intersect_input(cuda, Q * K + W, Q, K, W)
+    before = cuda_bool.intersect_many.launches
+    out, oc = cuda_bool.intersect_many(lists, counts, kv)
+    torch.cuda.synchronize()
+    assert cuda_bool.intersect_many.launches == before + 1
+    pout, poc = setops.intersect_many(lists, counts, kv)
+    torch.cuda.synchronize()
+    assert out.shape == (Q, W)
+    assert torch.equal(oc, poc) and torch.equal(out, pout)
+    assert int((oc > 0).sum()) > Q // 8
+    assert int((out == -1).sum(dim=1).lt(W).sum()) > 0
+
+
+def test_engine_cuda_with_delta_matches_cpu(cuda):
+    lists, t = _corpus(10, n_terms=120)
+    terms = [f"t{i:05d}".encode() for i in range(len(lists))]
+    rng = np.random.default_rng(11)
+    # the delta: half of it main terms that gain postings (some duplicates
+    # of main values), half new longer terms
+    dterms, dlists = [], []
+    for i in range(40):
+        new = i % 2 == 1
+        dterms.append(f"new-term-{i:04d}".encode() if new else terms[i])
+        base = lists[i]
+        extra = rng.integers(0, 2**32, size=int(rng.integers(1, 600)),
+                             dtype=np.uint64).astype(np.uint32)
+        dup = base[:: max(1, len(base) // 5)] if not new else base[:0]
+        dlists.append(np.unique(np.concatenate([extra, dup])))
+    order = sorted(range(len(dterms)), key=lambda i: dterms[i])
+    dterms = [dterms[i] for i in order]
+    dlists = [dlists[i] for i in order]
+    doffs = np.zeros(len(dterms) + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in dterms], out=doffs[1:])
+    dvoffs = np.zeros(len(dlists) + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in dlists], out=dvoffs[1:])
+    dt = build_host_tables(b"".join(dterms), doffs, np.concatenate(dlists),
+                           dvoffs)
+    removed = np.unique(np.concatenate([lists[3][::3], dlists[0][::4]]))
+    engines = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = QueryEngine(upload_tables(t, device=dev), L=256, tables=t,
+                          device=dev)
+        eng._publish(eng._state.replace(
+            delta=upload_tables(dt, device=dev), delta_tables=dt,
+            removed=torch.from_numpy(removed.view(np.int32)).to(dev)))
+        engines.append(eng)
+    gpu, cpu = engines
+    union = {}
+    for term, v in zip(terms, lists):
+        union[term] = v
+    for term, v in zip(dterms, dlists):
+        union[term] = np.union1d(union.get(term, v[:0]), v)
+    vocab = sorted(union)
+    queries = [[vocab[i] for i in rng.choice(len(vocab), size=int(k))]
+               for k in rng.integers(1, 6, size=300)]
+    queries += [[vocab[0], b"missing"], [b"missing"]]
+    k1, k3 = cuda_decode.decode_postings.launches, cuda_bool.intersect_many.launches
+    for fr in (False, True):
+        for op in ("and", "or"):
+            g_rows = gpu.boolean(queries, op, filter_removed=fr)
+            c_rows = cpu.boolean(queries, op, filter_removed=fr)
+            for q, a, b in zip(queries, g_rows, c_rows):
+                assert np.array_equal(a, b)
+                sets = [union.get(x) for x in q]
+                if op == "and":
+                    w = (sets[0] if all(s is not None for s in sets)
+                         else np.zeros(0, np.uint32))
+                    for s in sets[1:]:
+                        w = np.intersect1d(w, s) if s is not None else w
+                else:
+                    w = np.unique(np.concatenate(
+                        [s for s in sets if s is not None] or [w[:0]]))
+                if fr:
+                    w = np.setdiff1d(w, removed)
+                assert np.array_equal(a, w)
+            gp = gpu.boolean_staged([queries[:150], queries[150:]], op, fr,
+                                    columnar=True, prefix_p=8)
+            cp = cpu.boolean_staged([queries[:150], queries[150:]], op, fr,
+                                    columnar=True, prefix_p=8)
+            for x, y in zip(gp, cp):
+                assert all(np.array_equal(a, b) for a, b in zip(x, y))
+    for a, b in zip(gpu.lookup(vocab + [b"missing"]),
+                    cpu.lookup(vocab + [b"missing"])):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    assert cuda_bool.intersect_many.launches > k3
+    assert cuda_decode.decode_postings.launches > k1

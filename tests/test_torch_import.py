@@ -43,6 +43,7 @@ def test_port_imports_without_jax():
             "inverted_index_2_tpu_torch.ops.cuda_fused",
             "inverted_index_2_tpu_torch.ops.cuda_decode",
             "inverted_index_2_tpu_torch.ops.cuda_sort",
+            "inverted_index_2_tpu_torch.ops.cuda_bool",
             "inverted_index_2_tpu_torch.inverted_index",
             "inverted_index_2_tpu_torch.shard",
             "inverted_index_2_tpu_torch.segment.writer",
