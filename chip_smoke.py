@@ -9,19 +9,30 @@ Phases; any failure raises and the script exits non-zero:
      limit;
   2. build: nvcc builds the kernels of inverted_index_2_tpu_torch/csrc
      (kernel K1, posting decode; K2, fused decode + AND; K3, sorted-set AND;
-     K4, row sort), one nvcc per source in parallel;
+     K4, row sort, merge and compaction), one nvcc per source in parallel;
   3. each kernel against its plain torch version on the card, bit-identical:
      K1 and K2 at the AND slice's shapes (Q=8192 queries of up to 8 terms,
-     L=2048, and the ladder level 8192), K3 on the lists the delta window's
+     L=2048, and the ladder level 8192), K1 also at the dual step's shape
+     (65536 term slots, L=2048) with the delta tier's real found mask (rows
+     with found = False stay untouched); K3 on the lists the delta window's
      dual AND runs on (checked once phase 5 has made the delta): the pass
      over one uniform batch (Q=8192, K=8, width 2L=4096) and the first
      ladder re-serve dispatch at each level of the uniform stream (width
-     2 x level, with probe lists past the shared-memory stage), K4 at the
-     concat classes' chunk shapes (16384, 1024) .. (256, 65536), at
-     (64, 262144) and at one padded width, with rows of 0xFFFFFFFF and
-     0x80000000; each timed with CUDA events beside its plain version,
-     torch.sort for K4, and its bound (for K3, the lists its inputs need:
-     a query's AND stops at its first empty running result);
+     2 x level, with probe lists past the shared-memory stage), and on rows
+     with k_valid = 0 in both regimes of its plain version; K4's three
+     entries: the general sort at the concat classes' chunk shapes
+     (16384, 1024) .. (256, 65536), at (64, 262144) and at one odd width,
+     with rows of 0xFFFFFFFF and 0x80000000; the sort from ascending runs
+     at the same shapes with run=128, at (8192, 32768) run=4096, and the
+     two-run merge at (65536, 4096) run=2048 and (1232, 27136) run=13568;
+     the compaction of kept lanes at all of these shapes; and all three on
+     real dispatches, captured with their hints (the first pair-union
+     matrix and compaction input of the dual stream at L and at each
+     ladder level, the first concat-class chunk of the OR and OR-page
+     streams), each also held against its precondition; each timed with
+     CUDA events beside its plain version, torch.sort for K4, and its bound
+     (for K3, the lists its inputs need: a query's AND stops at its first
+     empty running result);
   4. a small engine check: an InvertedIndex (the port's) built with put /
      put_removed / merge, served by QueryEngine.from_index(...) on the card,
      against a numpy oracle: lookup, AND, OR (with tombstones), prefix_p
@@ -43,11 +54,16 @@ Phases; any failure raises and the script exits non-zero:
      vocabulary: AND over 4 uniform and 4 Zipf batches, OR pages over the 4
      uniform ones, full-result OR over one, and 8192 lookups, sampled
      results against the per-term union of both tiers, K1, K3 and K4
-     launched on the dual AND path, and one profiled dual AND pass.
+     launched on the dual AND path, and one profiled pass of the dual AND
+     and dual OR-page streams. K4's calls are counted by entry on every
+     path (no path may sort without a hint), and every profile prints K4's
+     device time by kernel.
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with each kernel's launches, error, time against its plain version
 and the library call, and bound, and nvidia-smi's name and power limit of
-the card.
+the card. Times are mean gaps between CUDA events over back-to-back calls;
+for a kernel under 0.1 ms, where that gap is the host's enqueue time, "ms"
+is its device time by torch.profiler, and the phase-3 lines print both.
 """
 from __future__ import annotations
 
@@ -85,6 +101,10 @@ K3_STAGE = 8192
 SORT_SHAPES = ((16384, 1024), (4096, 4096), (2048, 8192), (1024, 16384),
                (256, 65536), (64, 262144), (8192, 160))
 SORT_REPORTED = (2048, 8192)  # the modal class of config-3 OR (SB = 64)
+
+
+# K4's kernels as the profiler names them
+K4_KERNELS = ("sort_tiles_kernel", "merge_runs_kernel", "compact_rows_kernel")
 
 
 class SmokeError(RuntimeError):
@@ -185,6 +205,35 @@ def time_ms(torch, fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_ms(torch, fn, reps: int):
+    """A kernel wrapper's time: (ms on the card, ms between CUDA events),
+    both per call over `reps` calls. The second is the mean gap between
+    back-to-back calls. For a kernel of under 0.1 ms that gap is the host's
+    time to enqueue the call, not the card's to run it, so there the first
+    is the summed device time of what fn() launches (torch.profiler); for a
+    longer kernel the two agree and the first is the second. A profiler
+    capture that records nothing is tried again; after three the event
+    time stands, and the line says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    between = time_ms(torch, fn, reps)
+    if between >= 0.1:
+        return between, between
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps, between
+    print("[phase 3] the profiler recorded no device time for the next "
+          "kernel: its time is the gap between events")
+    return between, between
+
+
 def bound(nbytes: float, ops: float):
     """(bound ms, "bytes" or "operations")."""
     b, o = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
@@ -196,14 +245,97 @@ def _blocks(counts, cap=None):
     return nb if cap is None else np.minimum(nb, cap)
 
 
+def _check_k1(torch, s, ti, L, found):
+    """K1 on snapshot `s` for term indexes `ti` at width L, with or without
+    a found mask, against its plain version: counts equal, values
+    bit-identical on valid prefixes, and rows with found = False left as
+    they were (the output block is filled with a pattern first). Timed
+    beside the plain version and its bound. Returns (err, ms, plain ms,
+    None, bound ms, bound_by)."""
+    from inverted_index_2_tpu_torch.ops import cuda_decode
+    from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
+    from inverted_index_2_tpu_torch.utils.u32 import to_i64
+
+    dev = ti.device
+    Q = ti.shape[0]
+    stride = int(s.blocks.shape[1])
+    args = (s.blocks, s.term_block_start, s.counts, ti, L)
+    untouched = ""
+    kv_ = ptr = None
+    for _ in range(1 if found is None else 4):
+        # K1's output is a fresh torch.empty: fill a block of that size with
+        # a pattern and free it, so the allocator hands the same block out
+        if found is not None:
+            del kv_
+            pat = torch.full((Q, L), 0x5A5A5A5A, dtype=torch.int32,
+                             device=dev)
+            ptr = pat.data_ptr()
+            del pat
+        kv_, kc = cuda_decode.decode_postings(*args, found)
+        torch.cuda.synchronize()
+        if kv_.data_ptr() == ptr:
+            break
+    if found is not None:
+        check(kv_.data_ptr() == ptr, "K1: the output did not reuse the "
+              "pattern block, so untouched rows cannot be shown")
+        check(bool((kv_[~found] == 0x5A5A5A5A).all()),
+              f"K1 Q={Q} L={L}: a row with found = False was written")
+        check(bool((kc[~found] == 0).all()),
+              f"K1 Q={Q} L={L}: a row with found = False has a count")
+        untouched = (f", {int((~found).sum())} rows with found = False "
+                     f"untouched")
+    pv, pc = gather_postings_arena(*args, found)
+    torch.cuda.synchronize()
+    check(torch.equal(kc, pc), f"K1 Q={Q} L={L}: counts differ")
+    valid = (torch.arange(L, device=dev)[None, :]
+             < pc.clamp(max=L).long()[:, None])
+    diff = (to_i64(kv_) - to_i64(pv)).abs()[valid]
+    err = int(diff.max()) if diff.numel() else 0
+    check(err == 0, f"K1 Q={Q} L={L}: values differ (max abs {err})")
+    n_valid = int(valid.sum())
+    del kv_, pv, valid, diff
+    k_ms, e_ms = kernel_ms(
+        torch, lambda: cuda_decode.decode_postings(*args, found), 20)
+    p_ms = time_ms(torch, lambda: gather_postings_arena(*args, found), 3)
+    # bytes: each block row a found term needs read once, its 128 values
+    # written once; per term its index read, its count written, and for a
+    # found term its count and block start read (a found flag is a byte)
+    nb = _blocks(pc.cpu().numpy(), L // 128)
+    n_found = Q if found is None else int(found.sum())
+    b_ms, b_by = bound(nb.sum() * (stride * 4 + 512) + 8 * Q + 8 * n_found
+                       + (0 if found is None else Q), 2 * 128 * nb.sum())
+    print(f"[phase 3] K1 decode Q={Q} L={L}"
+          f"{'' if found is None else ' with found'}: bit-identical "
+          f"({n_valid} values, {int(nb.sum())} blocks){untouched}, kernel "
+          f"{k_ms:.4f} ms ({e_ms:.4f} by events), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return (err, k_ms, p_ms, None, b_ms, b_by)
+
+
+def phase_decode_dual(torch, eng, st, batch):
+    """Phase 3, K1 at the dual step's shape: every term slot of one uniform
+    dual batch (BATCH x 8 slots, L_MAIN) decoded in the delta tier with the
+    tier's real found mask, as _decode_tier does."""
+    from inverted_index_2_tpu_torch.models.steps import _narrow_keys
+    from inverted_index_2_tpu_torch.ops.dict_search import resolve
+    from inverted_index_2_tpu_torch.utils.u32 import to_device
+
+    d = st.delta
+    qk, _ = eng._pack_boolean(st, batch)
+    Q, K = qk.shape[:2]
+    qflat = to_device(_narrow_keys(qk, d.width), d.device).reshape(Q * K, -1)
+    idx, found = resolve(d.keys, qflat, d.hash_slots, d.max_probes)
+    check(0 < int(found.sum()) < Q * K, "K1 dual: the delta tier finds all "
+          "or none of the batch's terms")
+    return _check_k1(torch, d, idx.to(torch.int32), L_MAIN, found)
+
+
 def phase_kernels(torch, eng, terms_mat, uniform):
     """Phase 3: K1, K2 and K4 against their plain versions on the card.
     Returns per kernel (max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by)."""
     from inverted_index_2_tpu_torch.codec import keys as keys_mod
     from inverted_index_2_tpu_torch.models.steps import fused_rows
-    from inverted_index_2_tpu_torch.ops import cuda_decode, cuda_fused
-    from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
+    from inverted_index_2_tpu_torch.ops import cuda_fused
     from inverted_index_2_tpu_torch.ops.dict_search import resolve
     from inverted_index_2_tpu_torch.utils.u32 import to_device, to_i64
 
@@ -222,35 +354,8 @@ def phase_kernels(torch, eng, terms_mat, uniform):
     check(bool(found.all()), "K1 input: a corpus term did not resolve")
     idx = idx.to(torch.int32)
     longest = torch.argsort(s.counts[idx.long()], descending=True)[:1024]
-    errs, times = [], []
-    for L, ti in ((L_MAIN, idx), (4 * L_MAIN, idx[longest].contiguous())):
-        kv_, kc = cuda_decode.decode_postings(
-            s.blocks, s.term_block_start, s.counts, ti, L)
-        pv, pc = gather_postings_arena(s.blocks, s.term_block_start,
-                                       s.counts, ti, L)
-        torch.cuda.synchronize()
-        check(torch.equal(kc, pc), f"K1 L={L}: counts differ")
-        valid = (torch.arange(L, device=dev)[None, :]
-                 < pc.clamp(max=L).long()[:, None])
-        diff = (to_i64(kv_) - to_i64(pv)).abs()[valid]
-        err = int(diff.max()) if diff.numel() else 0
-        check(err == 0, f"K1 L={L}: values differ (max abs {err})")
-        k_ms = time_ms(torch, lambda: cuda_decode.decode_postings(
-            s.blocks, s.term_block_start, s.counts, ti, L), 20)
-        p_ms = time_ms(torch, lambda: gather_postings_arena(
-            s.blocks, s.term_block_start, s.counts, ti, L), 5)
-        # bytes: each block row a term needs read once, its 128 values
-        # written once, and the index, count and start of each term
-        nb = _blocks(pc.cpu().numpy(), L // 128)
-        b_ms, b_by = bound(nb.sum() * (stride * 4 + 512) + 12 * len(nb),
-                           2 * 128 * nb.sum())
-        print(f"[phase 3] K1 decode Q={ti.shape[0]} L={L}: bit-identical "
-              f"({int(valid.sum())} values), kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        errs.append(err)
-        times.append((k_ms, p_ms, b_ms, b_by))
-    res["decode_postings"] = (max(errs), times[0][0], times[0][1], None,
-                              times[0][2], times[0][3])
+    res["decode_postings"] = _check_k1(torch, s, idx, L_MAIN, None)
+    _check_k1(torch, s, idx[longest].contiguous(), 4 * L_MAIN, None)
 
     # K2 on the first uniform batch, then on its longest bases at 4L
     qk, kv = eng._pack_boolean(eng._state, uniform[0])
@@ -271,7 +376,7 @@ def phase_kernels(torch, eng, terms_mat, uniform):
         err = int((to_i64(ko) - to_i64(po)).abs().max())
         check(err == 0 and torch.equal(ko, po),
               f"K2 L={L}: masked rows differ (max abs {err})")
-        k_ms = time_ms(torch, lambda: cuda_fused.fused_and(
+        k_ms, e_ms = kernel_ms(torch, lambda: cuda_fused.fused_and(
             s.blocks, *args, L, compact=False), 20)
         p_ms = time_ms(torch, lambda: cuda_fused.fused_and_torch(
             s.blocks, *args, L), 2)
@@ -291,25 +396,136 @@ def phase_kernels(torch, eng, terms_mat, uniform):
         print(f"[phase 3] K2 fused AND Q={Q} K={K} L={L}: bit-identical "
               f"({int(kc.sum())} kept, "
               f"{int((need > L).sum()) if L == L_MAIN else 0} bases > L), "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"kernel {k_ms:.4f} ms ({e_ms:.4f} by events), plain "
+              f"{p_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
         errs.append(err)
         times.append((k_ms, p_ms, b_ms, b_by))
     res["fused_and"] = (max(errs), times[0][0], times[0][1], None,
                         times[0][2], times[0][3])
-    res["sort_rows"] = phase_sort(torch, dev)
+    res.update(phase_sort(torch, dev))
     return res
 
 
-def phase_sort(torch, dev):
-    """Phase 3, K4: bit-identical to its plain version at every shape in
-    SORT_SHAPES; timed beside the plain version and torch.sort."""
-    from inverted_index_2_tpu_torch.ops import cuda_sort
+def _lib_sort(torch, x, want, label):
+    """The library call beside K4: one torch.sort of the same rows in u32
+    order (on a uint32 view, or on the sign-flipped int32 bits where this
+    build has no uint32 sort). Returns (callable, its form)."""
     from inverted_index_2_tpu_torch.utils.u32 import flip
+
+    try:
+        xu = x.view(torch.uint32)
+        lib = torch.sort(xu, dim=1).values
+        check(torch.equal(lib.view(torch.int32), want),
+              f"torch.sort {label} on uint32 disagrees")
+        return (lambda: torch.sort(xu, dim=1)), "uint32"
+    except (RuntimeError, TypeError, NotImplementedError):
+        xf = flip(x)
+        return (lambda: torch.sort(xf, dim=1)), "flipped"
+
+
+def runs_input(torch, gen, Q, M, r, dev):
+    """(Q, M) u32 bits whose every r consecutive lanes ascend: sorted random
+    values, each run ending in a tail of 0xFFFFFFFF of random length (none
+    for a third of the runs, up to the whole run)."""
+    from inverted_index_2_tpu_torch.utils.u32 import sort_u32
+
+    n = -(-M // r)
+    x = sort_u32(torch.randint(-2**31, 2**31, (Q, n, r), dtype=torch.int32,
+                               device=dev, generator=gen), dim=2)
+    tail = torch.randint(0, r + 1, (Q, n, 1), device=dev, generator=gen)
+    tail[torch.rand((Q, n, 1), device=dev, generator=gen) < 0.33] = 0
+    x = torch.where(torch.arange(r, device=dev)[None, None, :] >= r - tail,
+                    -1, x)
+    return x.reshape(Q, n * r)[:, :M].contiguous()
+
+
+def _check_sort(torch, x, run, label, reps=10):
+    """K4's sort of x with the hint `run` against the plain version, the
+    hint itself verified, timed beside the plain version and torch.sort.
+    Returns (0, ms, plain ms, library ms, bound ms, bound_by)."""
+    from inverted_index_2_tpu_torch.ops import cuda_sort
+
+    Q, M = x.shape
+    cuda_sort.check_runs(x, run)
+    got = cuda_sort.sort_rows(x, run=run)
+    want = cuda_sort.sort_rows_torch(x, run=run)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"K4 sort {label}: rows differ from the plain version")
+    lib_call, lib_form = _lib_sort(torch, x, want, label)
+    del got, want
+    k_ms, e_ms = kernel_ms(torch, lambda: cuda_sort.sort_rows(x, run=run),
+                            reps)
+    p_ms = time_ms(torch, lambda: cuda_sort.sort_rows_torch(x, run=run), 3)
+    l_ms = time_ms(torch, lib_call, 3)
+    # bytes: the matrix read once and written once; operations: one compare
+    # per value and halving of the distance to a sorted row
+    plan = cuda_sort.sort_plan(M, run)
+    g = max(1, min(run, M))
+    b_ms, b_by = bound(2 * Q * M * 4,
+                       Q * M * max(1.0, math.log2(M) - math.log2(g)))
+    print(f"[phase 3] K4 sort_rows ({Q}, {M}) run={run} {label}: "
+          f"bit-identical, hint holds, plan {plan}, kernel {k_ms:.4f} ms "
+          f"({e_ms:.4f} by events), "
+          f"plain {p_ms:.4f} ms, torch.sort ({lib_form}) {l_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return (0, k_ms, p_ms, l_ms, b_ms, b_by)
+
+
+def _check_compact(torch, vals, keep, label, reps=10):
+    """K4's compaction against the plain version (the masked sort), the
+    precondition verified, timed beside the plain version and the masked
+    torch.sort. Returns (0, ms, plain ms, library ms, bound ms, bound_by)."""
+    from inverted_index_2_tpu_torch.ops import compaction
+
+    Q, M = vals.shape
+    compaction.check_kept_ascend(vals, keep)
+    got = compaction.compact_rows(vals, keep)
+    want = compaction.compact_rows_torch(vals, keep)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"K4 compact_rows {label}: rows differ from the plain version")
+    masked = torch.where(keep, vals, -1)
+    lib_call, lib_form = _lib_sort(torch, masked, want, label)
+    del got, want
+    k_ms, e_ms = kernel_ms(
+        torch, lambda: compaction.compact_rows(vals, keep), reps)
+    p_ms = time_ms(torch, lambda: compaction.compact_rows_torch(vals, keep),
+                   3)
+    l_ms = time_ms(torch, lib_call, 3)
+    del masked
+    # bytes: a value and a keep byte read and a value written per lane;
+    # operations: one scan step and one select per lane
+    b_ms, b_by = bound(Q * M * (4 + 1 + 4), 2 * Q * M)
+    print(f"[phase 3] K4 compact_rows ({Q}, {M}) {label}: bit-identical, "
+          f"kept lanes ascend, kernel {k_ms:.4f} ms ({e_ms:.4f} by events), "
+          f"plain {p_ms:.4f} ms, "
+          f"torch.sort of the masked rows ({lib_form}) {l_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return (0, k_ms, p_ms, l_ms, b_ms, b_by)
+
+
+def phase_sort(torch, dev):
+    """Phase 3, K4, every entry bit-identical to its plain version:
+      * the general sort (run=1) at every shape in SORT_SHAPES, on random
+        rows with rows of 0xFFFFFFFF and 0x80000000;
+      * the sort from runs at every SORT_SHAPES shape with run=128 (the
+        concat classes), at (8192, 32768) run=4096 (the dual OR), and the
+        two-run merge at (65536, 4096) run=2048 and (1232, 27136)
+        run=13568 (the pair union at L and at the top ladder level), on
+        sorted runs with 0xFFFFFFFF tails of random length;
+      * the compaction at every SORT_SHAPES shape and (65536, 4096), on
+        sorted rows with random keep masks, a row of 0xFFFFFFFF, a kept
+        genuine 0xFFFFFFFF member, an all-kept and a none-kept row.
+    Each timed beside the plain version, torch.sort and its bound. Returns
+    the reported numbers by kernels-line name."""
+    from inverted_index_2_tpu_torch.ops import cuda_sort
+    from inverted_index_2_tpu_torch.utils.u32 import sort_u32
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    reported = None
+    res = {}
     for Q, M in SORT_SHAPES:
         x = torch.randint(-2**31, 2**31, (Q, M), dtype=torch.int32,
                           device=dev, generator=gen)
@@ -319,39 +535,55 @@ def phase_sort(torch, dev):
         x[2, 1::3] = -2**31
         x[3] = torch.randint(0, 3, (M,), dtype=torch.int32, device=dev,
                              generator=gen)
+        _check_sort(torch, x, 1, "general")
         got = cuda_sort.sort_rows(x)
-        want = cuda_sort.sort_rows_torch(x)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape and torch.equal(got, want),
-              f"K4 ({Q}, {M}): rows differ from the plain version")
         check(bool((got[0] == -1).all()) and bool((got[1] == -2**31).all()),
               f"K4 ({Q}, {M}): a constant row changed")
-        # the library call: one torch.sort of the same rows, in u32 order
-        # (on a uint32 view, or on the sign-flipped int32 bits where this
-        # build has no uint32 sort)
-        try:
-            xu = x.view(torch.uint32)
-            lib = torch.sort(xu, dim=1).values
-            check(torch.equal(lib.view(torch.int32), want),
-                  f"torch.sort ({Q}, {M}) on uint32 disagrees")
-            lib_call, lib_form = (lambda: torch.sort(xu, dim=1)), "uint32"
-        except (RuntimeError, TypeError, NotImplementedError):
-            xf = flip(x)
-            lib_call, lib_form = (lambda: torch.sort(xf, dim=1)), "flipped"
-        k_ms = time_ms(torch, lambda: cuda_sort.sort_rows(x), 10)
-        p_ms = time_ms(torch, lambda: cuda_sort.sort_rows_torch(x), 5)
-        l_ms = time_ms(torch, lib_call, 5)
-        Mp = cuda_sort.padded_width(M)
-        b_ms, b_by = bound(2 * Q * M * 4, Q * Mp * math.log2(Mp))
-        print(f"[phase 3] K4 sort_rows ({Q}, {M}) (kernel width {Mp}): "
-              f"bit-identical, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"torch.sort ({lib_form}) {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
+        del x, got
+        x = runs_input(torch, gen, Q, M, 128, dev)
+        r = _check_sort(torch, x, 128, "blocks")
         if (Q, M) == SORT_REPORTED:
-            reported = (0, k_ms, p_ms, l_ms, b_ms, b_by)
-        del x, got, want
-    torch.cuda.empty_cache()
-    return reported
+            res["sort_rows"] = r
+        # the compaction: sorted rows, each with its own keep density
+        vals = sort_u32(x, dim=1)
+        del x
+        keep = (torch.rand((Q, M), device=dev, generator=gen)
+                < torch.rand((Q, 1), device=dev, generator=gen))
+        _edge_rows(vals, keep)
+        _check_compact(torch, vals, keep, "sorted rows")
+        del vals, keep
+        torch.cuda.empty_cache()
+    for Q, M, r_, label in ((8192, 8 * 2 * L_MAIN, 2 * L_MAIN, "dual OR"),
+                            (1232, 2 * 13568, 13568, "pair union, top level"),
+                            (BATCH * 8, 2 * L_MAIN, L_MAIN, "pair union")):
+        x = runs_input(torch, gen, Q, M, r_, dev)
+        r = _check_sort(torch, x, r_, label)
+        if label == "pair union":
+            res["sort_rows.two_run"] = r
+            vals = sort_u32(x, dim=1)
+            del x
+            keep = torch.cat([torch.ones((Q, 1), dtype=torch.bool, device=dev),
+                              vals[:, 1:] != vals[:, :-1]], dim=1)
+            keep &= torch.rand((Q, M), device=dev, generator=gen) < 0.9
+            _edge_rows(vals, keep)
+            res["compact_rows"] = _check_compact(torch, vals, keep,
+                                                 "pair union")
+            del vals, keep
+        else:
+            del x
+        torch.cuda.empty_cache()
+    return res
+
+
+def _edge_rows(vals, keep):
+    """The compaction's edge rows, in place: row 0 all 0xFFFFFFFF, row 1
+    keeps a genuine 0xFFFFFFFF as its last member, row 2 keeps every lane,
+    row 3 keeps none."""
+    vals[0] = -1
+    vals[1, -1] = -1
+    keep[1, -1] = True
+    keep[2] = True
+    keep[3] = False
 
 
 def _dual_inputs(torch, st, qk, kv, lv):
@@ -389,8 +621,8 @@ def _check_k3(torch, lists, ncnt, kvt, label):
     err = int((to_i64(ko) - to_i64(po)).abs().max())
     check(err == 0 and torch.equal(ko, po),
           f"K3 {label}: rows differ from the plain version (max abs {err})")
-    k_ms = time_ms(torch, lambda: cuda_bool.intersect_many(lists, ncnt, kvt),
-                   20)
+    k_ms, e_ms = kernel_ms(
+        torch, lambda: cuda_bool.intersect_many(lists, ncnt, kvt), 20)
     p_ms = time_ms(torch, lambda: setops.intersect_many(lists, ncnt, kvt), 3)
     # what these inputs need: list j is read only while the running AND of
     # lists 0 .. j-1 is non-empty (the kernel stops a query there), so the
@@ -418,9 +650,91 @@ def _check_k3(torch, lists, ncnt, kvt, label):
     print(f"[phase 3] K3 intersect {label} Q={Q} K={K} width={W}: "
           f"bit-identical ({int(kc.sum())} kept, {int(c.sum())} valid "
           f"values, {int((c * reached).sum())} reached, {wide} reached "
-          f"probe lists past {K3_STAGE}), kernel {k_ms:.4f} ms, plain "
+          f"probe lists past {K3_STAGE}), kernel {k_ms:.4f} ms ({e_ms:.4f} by "
+          f"events), plain "
           f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return err, k_ms, p_ms, b_ms, b_by, wide
+
+
+def check_k3_no_terms(torch, dev):
+    """Phase 3, K3 on rows with k_valid = 0 and a non-empty base, in both
+    regimes of the plain version: at L = 128 (broadcast) the row keeps its
+    base's valid prefix, at L = 1024 (sort) it is empty; the card answers
+    as the plain version does at each."""
+    from inverted_index_2_tpu_torch.ops import cuda_bool, setops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    for L in (128, 1024):
+        Q, K = 256, 4
+        steps = torch.randint(1, 9, (Q, K, L), device=dev, generator=gen)
+        lists = torch.cumsum(steps, dim=2).to(torch.int32)
+        counts = torch.randint(1, L + 1, (Q, K), device=dev,
+                               generator=gen).to(torch.int32)
+        kv = torch.randint(0, K + 1, (Q,), device=dev,
+                           generator=gen).to(torch.int32)
+        kv[::3] = 0
+        ko, kc = cuda_bool.intersect_many(lists, counts, kv)
+        po, pc = setops.intersect_many(lists, counts, kv)
+        torch.cuda.synchronize()
+        check(torch.equal(kc, pc) and torch.equal(ko, po),
+              f"K3 k_valid = 0 rows at L={L}: differ from the plain version")
+        none = kv == 0
+        want = counts[none, 0] if L * L <= setops._BROADCAST_LIMIT else 0
+        check(bool((kc[none] == want).all()),
+              f"K3 k_valid = 0 rows at L={L}: not the regime's answer")
+        print(f"[phase 3] K3 intersect, {int(none.sum())} rows with k_valid "
+              f"= 0 and a non-empty base at L={L}: equal to the plain "
+              f"version ({int(kc[none].sum())} values kept)")
+
+
+class CaptureK4:
+    """While active, records the arguments of the first K4 sort and the
+    first K4 compaction that ops/setops.py and ops/concat_bool.py dispatch
+    (and passes every call through): .sort = (x, run), .compact = (vals,
+    keep)."""
+
+    def __enter__(self):
+        from inverted_index_2_tpu_torch.ops import concat_bool, setops
+
+        self.sort = self.compact = None
+        self._mods = (setops, concat_bool)
+        self._saved = [(m, m.sort_rows, m.compact_rows) for m in self._mods]
+        real_sort, real_compact = setops.sort_rows, setops.compact_rows
+
+        def sort_rows(x, run=1):
+            if self.sort is None:
+                self.sort = (x, run)
+            return real_sort(x, run=run)
+
+        def compact_rows(vals, keep):
+            if self.compact is None:
+                self.compact = (vals, keep)
+            return real_compact(vals, keep)
+
+        for m in self._mods:
+            m.sort_rows, m.compact_rows = sort_rows, compact_rows
+        return self
+
+    def __exit__(self, *exc):
+        for m, srt, cmp_ in self._saved:
+            m.sort_rows, m.compact_rows = srt, cmp_
+        return False
+
+    def verify(self, torch, label, compact=True):
+        """The captured dispatches against the plain versions and against
+        their preconditions (compact=False: the path compacts nothing)."""
+        check(self.sort is not None, f"K4 {label}: no sort was dispatched")
+        x, run = self.sort
+        _check_sort(torch, x, run, f"real dispatch, {label}", reps=3)
+        check((self.compact is not None) == compact,
+              f"K4 {label}: a compaction was "
+              f"{'not ' if compact else ''}dispatched")
+        if compact:
+            vals, keep = self.compact
+            _check_compact(torch, vals, keep, f"real dispatch, {label}",
+                           reps=3)
+        self.sort = self.compact = None
 
 
 def phase_intersect(torch, eng, st, batches):
@@ -431,7 +745,10 @@ def phase_intersect(torch, eng, st, batches):
     made as _drain_levels makes them from the re-served rows of all the
     `batches` (one stream). The top level must hold a reached probe list
     past K3_STAGE, so K3's global-memory search runs. Each is timed beside
-    the plain version. No single PyTorch call computes a sorted-set AND,
+    the plain version. The pair union that makes each of these inputs
+    dispatches K4's two-run merge and compaction: the first of each per
+    level is captured and held against its plain version and its
+    precondition. No single PyTorch call computes a sorted-set AND,
     so there is no library time. Returns the pass's numbers."""
     from inverted_index_2_tpu_torch.models.steps import _RESERVE_BUDGET
 
@@ -439,11 +756,14 @@ def phase_intersect(torch, eng, st, batches):
     items = []  # (need, level, qk row, kv) of every re-served row
     res = None
     for bi, (qk, kv) in enumerate(packed):
-        lists, ncnt, kvt, need = _dual_inputs(torch, st, qk, kv, L_MAIN)
+        with CaptureK4() as cap:
+            lists, ncnt, kvt, need = _dual_inputs(torch, st, qk, kv, L_MAIN)
         if bi == 0:
+            cap.verify(torch, f"dual pass at L={L_MAIN}")
             err, k_ms, p_ms, b_ms, b_by, _ = _check_k3(
                 torch, lists, ncnt, kvt, "dual pass")
             res = (err, k_ms, p_ms, None, b_ms, b_by)
+        del cap
         del lists, ncnt
         need = need.cpu().numpy()
         for i in np.nonzero(need > L_MAIN)[0]:
@@ -467,7 +787,10 @@ def phase_intersect(torch, eng, st, batches):
     for lv, rows in firsts.items():
         qk = eng._stack_rows([t[0] for t in rows])
         kv = np.array([t[1] for t in rows], dtype=np.int32)
-        lists, ncnt, kvt, _ = _dual_inputs(torch, st, qk, kv, lv)
+        with CaptureK4() as cap:
+            lists, ncnt, kvt, _ = _dual_inputs(torch, st, qk, kv, lv)
+        cap.verify(torch, f"re-serve level {lv}")
+        del cap
         wide += _check_k3(torch, lists, ncnt, kvt,
                           f"re-serve level {lv} "
                           f"({len(items)} re-served rows)")[5]
@@ -759,11 +1082,22 @@ def profile_stream(torch, serve, name):
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
+    # K4's device time by kernel (csrc/sort_rows.cu) and its share
+    k4 = {k: [0.0, 0] for k in K4_KERNELS}
+    for e in events:
+        for k in K4_KERNELS:
+            if k in e.key:
+                k4[k][0] += e.self_device_time_total
+                k4[k][1] += e.count
+    k4_us = sum(v[0] for v in k4.values())
     print(f"[phase 5] profile {name}: wall {wall:.6f} s, device busy "
           f"{busy_us / 1e6:.6f} s = {busy_us / 1e6 / wall:.4f} of the pass, "
           f"{launches} kernel launches; top device time: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.1f} us "
-                      f"x{e.count}" for e in top))
+                      f"x{e.count}" for e in top)
+          + f"; K4 {k4_us:.1f} us = {k4_us / max(busy_us, 1e-9):.4f} of the "
+          "device time: "
+          + ", ".join(f"{k} {v[0]:.1f} us x{v[1]}" for k, v in k4.items()))
 
 
 def phase_main(torch, args, device="cuda"):
@@ -865,6 +1199,8 @@ def phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive):
           f"{torch.cuda.max_memory_allocated()} bytes")
     profile_stream(torch, lambda: eng.boolean_staged(
         dub, "and", columnar=True, depth=4), "dual AND uniform")
+    profile_stream(torch, lambda: eng.boolean_staged(
+        dub, "or", columnar=True, depth=4, prefix_p=PAGE_P), "dual OR pages")
     print(f"[phase 5] delta window took {time.perf_counter() - t0:.4f} s")
 
 
@@ -911,6 +1247,18 @@ def main(argv=None) -> int:
         return values[voffs[i]:voffs[i + 1]]
 
     kern = phase_kernels(torch, eng, terms_mat, uniform_b)
+    # K4 on real dispatches of the OR streams: the first concat-class chunk
+    # of the full-result stream (which ships the sorted lanes and compacts
+    # nothing) and of the page stream (whose compaction takes a column
+    # slice of the sorted matrix)
+    with CaptureK4() as cap:
+        eng.boolean_staged(uniform_b, "or", columnar=True)
+    cap.verify(torch, "first concat-class chunk of the OR stream",
+               compact=False)
+    with CaptureK4() as cap:
+        eng.boolean_staged(uniform_b, "or", columnar=True, prefix_p=PAGE_P)
+    cap.verify(torch, "first concat-class chunk of the OR page stream")
+    del cap
     phase_engine_small(torch, "cuda")
     phase_refresh(torch, "cuda")
 
@@ -923,12 +1271,19 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in counters}
     per_path = {}
 
+    entries = cuda_sort.sort_rows.entries  # K4's calls by entry
+    for name in entries:
+        launches["sort_rows." + name] = 0
+
     def drive(path, fn):
         for c in counters.values():
             c.launches = 0
+        for name in entries:
+            entries[name] = 0
         out = fn()
         torch.cuda.synchronize()
         got = {name: c.launches for name, c in counters.items()}
+        got.update({"sort_rows." + name: n for name, n in entries.items()})
         per_path[path] = got
         for name, n in got.items():
             launches[name] += n
@@ -990,41 +1345,63 @@ def main(argv=None) -> int:
     d_zipf = zipf_stream(rng, delta["n_terms"], N_DUAL_BATCHES)
     d_uniform_b = [[[delta["term_bytes"][i] for i in q] for q in b]
                    for b in d_uniform]
+    kern["decode_postings.found"] = phase_decode_dual(
+        torch, eng, delta["state"], d_uniform_b[0])
+    check_k3_no_terms(torch, eng.device)
     kern["intersect_many"] = phase_intersect(torch, eng, delta["state"],
                                              d_uniform_b)
     del d_uniform_b
     phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive)
     print(f"[phase 5] kernel launches per path {per_path}; total {launches}")
+    concat = ("sort_rows.runs",)
+    dual = ("decode_postings", "sort_rows.two_run", "sort_rows.compact")
     for path, names in (
             ("and uniform", ("fused_and",)), ("lookup", ("decode_postings",)),
-            ("or uniform", ("sort_rows",)), ("or zipf", ("sort_rows",)),
-            ("or pages", ("sort_rows",)), ("lookup_staged", ("sort_rows",)),
-            ("dual and uniform", ("decode_postings", "intersect_many",
-                                  "sort_rows")),
-            ("dual and zipf", ("decode_postings", "intersect_many",
-                               "sort_rows")),
-            ("dual or pages", ("decode_postings", "sort_rows")),
-            ("dual or", ("decode_postings", "sort_rows")),
+            ("or uniform", concat), ("or zipf", concat),
+            ("or pages", concat + ("sort_rows.compact",)),
+            ("lookup_staged", concat),
+            ("dual and uniform", dual + ("intersect_many",)),
+            ("dual and zipf", dual + ("intersect_many",)),
+            ("dual or pages", dual + ("sort_rows.runs",)),
+            ("dual or", dual + ("sort_rows.runs",)),
             ("dual lookup", ("decode_postings",))):
         for name in names:
             check(per_path[path][name] > 0,
                   f"the {path} path never launched {name}")
+    for path, got in per_path.items():
+        # every call site states its runs: nothing takes the whole network
+        check(got["sort_rows.general"] == 0,
+              f"the {path} path sorted {got['sort_rows.general']} matrices "
+              "without a hint")
+        check(got["sort_rows"] == sum(got["sort_rows." + n] for n in entries),
+              f"the {path} path's K4 entries do not add up")
 
     src = "inverted_index_2_tpu_torch/csrc/"
-    meta = {"decode_postings": (src + "decode_postings.cu",
-                                "inverted_index_2_tpu/ops/pallas_decode.py:81"),
+    k1 = (src + "decode_postings.cu",
+          "inverted_index_2_tpu/ops/pallas_decode.py:81")
+    k4 = (src + "sort_rows.cu", "inverted_index_2_tpu/ops/pallas_sort.py:86")
+    # name -> (source, replaces, the launch count it reports). K1 has one
+    # entry (its second row is the dual step's shape). K4 has a row per
+    # entry that the paths launch: "sort_rows" is the sort from 128-lane
+    # runs at the modal concat class and counts every K4 call; no path
+    # launches the general sort (checked above), whose times are in the
+    # phase-3 lines only
+    meta = {"decode_postings": k1 + ("decode_postings",),
+            "decode_postings.found": k1 + ("decode_postings",),
             "fused_and": (src + "fused_and.cu",
-                          "inverted_index_2_tpu/ops/pallas_fused.py:380"),
+                          "inverted_index_2_tpu/ops/pallas_fused.py:380",
+                          "fused_and"),
             "intersect_many": (src + "intersect.cu",
-                               "inverted_index_2_tpu/ops/pallas_bool.py:113"),
-            "sort_rows": (src + "sort_rows.cu",
-                          "inverted_index_2_tpu/ops/pallas_sort.py:86")}
+                               "inverted_index_2_tpu/ops/pallas_bool.py:113",
+                               "intersect_many"),
+            "sort_rows": k4 + ("sort_rows",),
+            "sort_rows.two_run": k4 + ("sort_rows.two_run",),
+            "compact_rows": k4 + ("sort_rows.compact",)}
     rows = []
-    for name in ("decode_postings", "fused_and", "intersect_many",
-                 "sort_rows"):
+    for name, (source, replaces, counted) in meta.items():
         err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]
-        rows.append({"name": name, "route": "cuda", "source": meta[name][0],
-                     "replaces": meta[name][1], "launches": launches[name],
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[counted],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "lib_ms": lib_ms})

@@ -18,6 +18,28 @@ namespace tpi {
 
 constexpr int kBlock = 128;
 
+// Values of one block from its anchor and the four deltas each lane holds
+// (deltas 4*lane .. 4*lane+3): the 127-step prefix sum as a warp scan on
+// uint32. All 32 lanes call this together.
+static __device__ __forceinline__ void scan_deltas(uint32_t anchor,
+                                                   uint32_t d0, uint32_t d1,
+                                                   uint32_t d2, uint32_t d3,
+                                                   int lane, uint32_t v[4]) {
+  const uint32_t s0 = d0 + 1u, s1 = d1 + 1u, s2 = d2 + 1u;
+  const uint32_t total = s0 + s1 + s2 + (d3 + 1u);
+  // inclusive warp scan of the per-lane step totals
+  uint32_t inc = total;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, inc, off);
+    if (lane >= off) inc += y;
+  }
+  v[0] = anchor + (inc - total);
+  v[1] = v[0] + s0;
+  v[2] = v[1] + s1;
+  v[3] = v[2] + s2;
+}
+
 // All 32 lanes of the warp must call this together. Lane `lane` receives
 // values 4*lane .. 4*lane+3 of the block in v[0..3]. Reads only `row[0,
 // stride)`.
@@ -49,19 +71,42 @@ static __device__ __forceinline__ void decode_block_warp(
     d2 = wi + 2 < stride ? __ldg(row + wi + 2) : 0u;
     d3 = wi + 3 < stride ? __ldg(row + wi + 3) : 0u;
   }
-  const uint32_t s0 = d0 + 1u, s1 = d1 + 1u, s2 = d2 + 1u;
-  const uint32_t total = s0 + s1 + s2 + (d3 + 1u);
-  // inclusive warp scan of the per-lane step totals
-  uint32_t inc = total;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, inc, off);
-    if (lane >= off) inc += y;
+  scan_deltas(anchor, d0, d1, d2, d3, lane, v);
+}
+
+// The widest arena row: header, anchor and 128 deltas of 4 bytes, rounded up
+// to a 16-byte multiple.
+constexpr int kMaxRowWords = 132;
+
+// decode_block_warp for a row staged in shared memory (K1): `row` is 8-byte
+// aligned and holds at least kMaxRowWords words, the words past the arena's
+// stride zero, so no word needs a bounds test and words past the row read
+// as zero as above.
+static __device__ __forceinline__ void decode_block_warp_staged(
+    const uint32_t* row, int lane, uint32_t v[4]) {
+  const uint32_t cls = (row[0] & 0xFFu) >> 3;
+  uint32_t d0 = 0u, d1 = 0u, d2 = 0u, d3 = 0u;
+  if (cls == 1u) {
+    const uint32_t w = row[2 + lane];
+    d0 = w & 0xFFu;
+    d1 = (w >> 8) & 0xFFu;
+    d2 = (w >> 16) & 0xFFu;
+    d3 = w >> 24;
+  } else if (cls == 2u) {
+    const uint2 w = reinterpret_cast<const uint2*>(row + 2)[lane];
+    d0 = w.x & 0xFFFFu;
+    d1 = w.x >> 16;
+    d2 = w.y & 0xFFFFu;
+    d3 = w.y >> 16;
+  } else if (cls == 4u) {
+    const uint2 lo = reinterpret_cast<const uint2*>(row + 2)[2 * lane];
+    const uint2 hi = reinterpret_cast<const uint2*>(row + 2)[2 * lane + 1];
+    d0 = lo.x;
+    d1 = lo.y;
+    d2 = hi.x;
+    d3 = hi.y;
   }
-  v[0] = anchor + (inc - total);
-  v[1] = v[0] + s0;
-  v[2] = v[1] + s1;
-  v[3] = v[2] + s2;
+  scan_deltas(row[1], d0, d1, d2, d3, lane, v);
 }
 
 }  // namespace tpi

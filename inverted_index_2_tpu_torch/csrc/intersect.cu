@@ -7,7 +7,10 @@
 // garbage beyond, k_valid (Q,) lists present. Output: the base list's
 // (list 0) values that are members of lists 1 .. k_valid-1, ascending at the
 // front of a (Q, L) row, 0xFFFFFFFF to the end of the row, and the count.
-// A row with k_valid = 0 is empty (the sort regime's answer).
+// The plain version has two regimes that differ on a row with k_valid = 0:
+// its broadcast regime (small L) keeps the base's valid prefix, its sort
+// regime gives an empty row. `keep_base` picks between them, and the wrapper
+// sets it as the plain version would choose at this L.
 //
 // The TPU kernel compared every base value with every probe value (O(L^2)
 // VPU broadcasts in VMEM) and left the compaction to a jnp.sort outside.
@@ -58,7 +61,7 @@ __device__ __forceinline__ int lower_bound(const uint32_t* a, int lo, int hi,
 
 __global__ void __launch_bounds__(kThreads) intersect_kernel(
     const uint32_t* __restrict__ lists, const int32_t* __restrict__ counts,
-    const int32_t* __restrict__ k_valid, int K, int L,
+    const int32_t* __restrict__ k_valid, int K, int L, int keep_base,
     uint32_t* __restrict__ out, int32_t* __restrict__ out_counts) {
   __shared__ uint32_t stage[kStage];
   __shared__ int warp_total[kThreads / 32];
@@ -68,7 +71,8 @@ __global__ void __launch_bounds__(kThreads) intersect_kernel(
   const uint32_t* row = lists + q * K * static_cast<int64_t>(L);
   const int32_t* cnt = counts + q * K;
   const int kv = min(k_valid[q], K);
-  const int n0 = kv > 0 ? min(max(cnt[0], 0), L) : 0;
+  // with no list present no probe runs, so the whole base prefix is kept
+  const int n0 = (kv > 0 || keep_base) ? min(max(cnt[0], 0), L) : 0;
   uint32_t* orow = out + q * static_cast<int64_t>(L);
   int written = 0;
 
@@ -137,16 +141,18 @@ __global__ void __launch_bounds__(kThreads) intersect_kernel(
 }  // namespace
 
 // lists (Q, K, L), counts (Q, K), k_valid (Q,) int32, all contiguous; out
-// (Q, L) and out_counts (Q,) fresh allocations. Returns cudaGetLastError()
-// after the launch.
+// (Q, L) and out_counts (Q,) fresh allocations. keep_base != 0: a row with
+// k_valid = 0 keeps its base's valid prefix, else it is empty. Returns
+// cudaGetLastError() after the launch.
 extern "C" int tpi_intersect(const void* lists, const void* counts,
                              const void* k_valid, int Q, int K, int L,
-                             void* out, void* out_counts, void* stream) {
+                             int keep_base, void* out, void* out_counts,
+                             void* stream) {
   if (Q == 0) return 0;
   intersect_kernel<<<static_cast<unsigned>(Q), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(lists), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(k_valid), K, L,
+      static_cast<const int32_t*>(k_valid), K, L, keep_base,
       static_cast<uint32_t*>(out), static_cast<int32_t*>(out_counts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,8 +25,7 @@ def lookup_step(keys, blocks, term_block_start, counts, qkeys, L: int,
     it at a larger L. Pass `removed` to filter tombstones per row."""
     idx, found = resolve(keys, qkeys, slots, max_probes)
     vals, raw = decode_postings(blocks, term_block_start, counts,
-                                idx.to(torch.int32), L)
-    raw = torch.where(found, raw, 0)
+                                idx.to(torch.int32), L, found)
     n = raw.clamp(max=L)
     if removed is not None and removed.shape[0] > 0:
         vals, n = setops.filter_removed(vals, n, removed)
@@ -37,15 +36,15 @@ def _decode_tier(keys, blocks, term_block_start, counts, slots, max_probes,
                  qflat, L: int):
     """Resolve packed terms (T, W+1) in one tier and decode their first L
     postings through K1: (vals (T, L) u32 bits, raw counts (T,), 0 for a
-    miss)."""
+    miss, whose row K1 neither reads nor writes)."""
     idx, found = resolve(keys, qflat, slots, max_probes)
-    vals, raw = decode_postings(blocks, term_block_start, counts,
-                                idx.to(torch.int32), L)
-    return vals, torch.where(found, raw, 0)
+    return decode_postings(blocks, term_block_start, counts,
+                           idx.to(torch.int32), L, found)
 
 
 def _set_op(lists, ncnt, k_valid, op: str):
-    """AND through K3, OR through the plain union (row sorts on K4)."""
+    """AND through K3, OR through the plain union (K runs merged and the
+    unique values compacted on K4)."""
     if op == "and":
         return intersect_many(lists, ncnt, k_valid)
     if op == "or":
@@ -85,9 +84,10 @@ def dual_lists(keys1, blocks1, tbs1, counts1, slots1,
                qkeys1, qkeys2, L: int, max_probes1: int = 0,
                max_probes2: int = 0):
     """The lists the dual step's set op runs on: each term's first L
-    postings in each tier (K1), united per term (union_many, row sorts on
-    K4). Returns (lists (Q, K, 2L) u32 bits, counts (Q, K), raw (Q, K) the
-    summed true counts of both tiers)."""
+    postings in each tier (K1), united per term (union_many: one K4 merge
+    of the two tiers' runs and one K4 compaction). Returns (lists (Q, K,
+    2L) u32 bits, counts (Q, K), raw (Q, K) the summed true counts of both
+    tiers)."""
     Q, K = qkeys1.shape[:2]
     v1, r1 = _decode_tier(keys1, blocks1, tbs1, counts1, slots1,
                           max_probes1, qkeys1.reshape(Q * K, -1), L)

@@ -1,5 +1,5 @@
 """Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND, K3
-sorted-set AND, K4 row sort).
+sorted-set AND, K4 row sort, merge and compaction).
 
 At first use (never at import) nvcc compiles every `csrc/*.cu` for Hopper
 (`sm_90a`), one process per source in parallel, and links them into one
@@ -93,13 +93,18 @@ def _compile(so: Path) -> None:
 
 def _bind(lib):
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tpi_decode_postings.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp]
+    lib.tpi_decode_postings.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, vp,
+                                        vp]
     lib.tpi_decode_postings.restype = i
     lib.tpi_fused_and.argtypes = [vp, i, vp, vp, vp, i, i, i, vp, vp, vp]
     lib.tpi_fused_and.restype = i
-    lib.tpi_sort_rows.argtypes = [vp, i64, vp, i64, i64, vp]
-    lib.tpi_sort_rows.restype = i
-    lib.tpi_intersect.argtypes = [vp, vp, vp, i, i, i, vp, vp, vp]
+    lib.tpi_compact_rows.argtypes = [vp, i64, vp, i64, vp, i64, i64, vp]
+    lib.tpi_compact_rows.restype = i
+    lib.tpi_sort_tiles.argtypes = [vp, i64, vp, i64, i64, i64, i, i, vp]
+    lib.tpi_sort_tiles.restype = i
+    lib.tpi_merge_runs.argtypes = [vp, i64, vp, i64, i64, i64, i64, vp]
+    lib.tpi_merge_runs.restype = i
+    lib.tpi_intersect.argtypes = [vp, vp, vp, i, i, i, i, vp, vp, vp]
     lib.tpi_intersect.restype = i
     lib.tpi_error_string.argtypes = [i]
     lib.tpi_error_string.restype = ctypes.c_char_p

@@ -3,10 +3,11 @@
 Work proportional to each query's TOTAL posting count: every query's block
 rows are laid out contiguously into SB slots (concat_layout), decoded and
 masked to real lanes (decode_masked), sorted ONCE at (Q, SB*128) through
-kernel K4, and reduced by run length (lists are sorted-unique, so a value
-appears once per list that holds it):
+kernel K4 (every 128-lane block already ascends, so with run=128), and
+reduced by run length (lists are sorted-unique, so a value appears once per
+list that holds it):
     AND: run length == k_valid      OR: first of run
-then compacted with the SENTINEL-masked sort (ops/compaction.py, K4 again).
+then the kept lanes are compacted (ops/compaction.py, K4's compaction).
 Exact at any length; no truncation and no re-serve. The decode and the
 run-length marks are plain torch ops, as they were plain XLA in JAX.
 
@@ -57,7 +58,8 @@ def concat_layout(tbs_q, cnt, SB: int):
 def decode_masked(blocks, rows, in_use, bit, cnt_j):
     """Decode the laid-out blocks and mask real lanes: (flat (Q, SB*128) u32
     bits with 0xFFFFFFFF on invalid lanes, vals (Q, SB, 128) the decoded
-    u32 bits, mask (Q, SB, 128) the real lanes)."""
+    u32 bits, mask (Q, SB, 128) the real lanes). Each 128-lane block of
+    flat ascends: real lanes are a prefix of the block, then the fill."""
     Q, SB = rows.shape
     vals, _ = decode_blocks(blocks[rows])
     vals = from_i64(vals)
@@ -125,7 +127,7 @@ def boolean_concat_step(blocks, term_block_start, counts, idx, found,
     rows, in_use, bit, cnt_j, cum = concat_layout(
         term_block_start[idx].to(torch.int64), cnt, SB)
     flat, vals, mask = decode_masked(blocks, rows, in_use, bit, cnt_j)
-    svals = sort_rows(flat)
+    svals = sort_rows(flat, run=BLOCK)
     first = torch.cat([torch.ones((Q, 1), dtype=torch.bool, device=dev),
                        svals[:, 1:] != svals[:, :-1]], dim=1)
     if op == "and":

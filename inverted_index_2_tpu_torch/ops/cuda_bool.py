@@ -25,11 +25,12 @@ def intersect_many(lists: torch.Tensor, counts: torch.Tensor,
     Returns (vals (Q, L) u32 bits, the kept values ascending then
     0xFFFFFFFF to the end of the row; counts (Q,) int32).
 
-    A row with k_valid = 0 is empty on the card (the sort regime's answer).
-    The plain version's broadcast regime (L * L <= 512 * 512) keeps the
-    base of such a row instead. The dual step makes a k_valid = 0 row only
-    for a query of no terms, whose base is the all-zero key's list: empty
-    unless the index holds the empty term."""
+    A row with k_valid = 0 is answered as the plain version answers it at
+    this L: its broadcast regime (L * L <= setops._BROADCAST_LIMIT) keeps
+    the base's valid prefix, its sort regime gives an empty row, and the
+    kernel is told which. The dual step makes such a row only for a query
+    of no terms, whose base is the all-zero key's list: empty unless the
+    index holds the empty term."""
     dev = lists.device
     if dev.type == "cpu":
         return setops.intersect_many(lists, counts, k_valid)
@@ -51,7 +52,8 @@ def intersect_many(lists: torch.Tensor, counts: torch.Tensor,
         with torch.cuda.device(dev):
             err = lib.tpi_intersect(
                 lists.data_ptr(), counts.data_ptr(), k_valid.data_ptr(),
-                Q, K, L, out.data_ptr(), oc.data_ptr(),
+                Q, K, L, int(L * L <= setops._BROADCAST_LIMIT),
+                out.data_ptr(), oc.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "tpi_intersect")
         intersect_many.launches += 1

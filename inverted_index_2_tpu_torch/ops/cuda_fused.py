@@ -16,9 +16,9 @@ import torch
 
 from . import _build
 from .cuda_decode import _check_int32
-from .cuda_sort import sort_rows
+from .compaction import compact_rows
 from .decode import BLOCK, decode_lists
-from ..utils.u32 import MASK32, from_i64
+from ..utils.u32 import MASK32, SENT, from_i64
 
 MAX_LEVEL = 16384       # largest L K2 takes: a 64 KiB base in shared memory
 _PLAIN_BUDGET = 1 << 22  # values per probe matrix in the plain version
@@ -92,8 +92,9 @@ def fused_and(blocks: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
     the smallest list (reorder_smallest_base), 0 for missing terms;
     k_valid (Q,) int32. Probe lists are walked to their full length; only a
     base count over L needs a re-serve. Returns (vals (Q, L) u32 bits,
-    oc (Q,) int32): non-members are 0xFFFFFFFF, and with `compact` each row
-    is sorted so its first oc values are the result."""
+    oc (Q,) int32): non-members are 0xFFFFFFFF, and with `compact` the
+    members are packed to the front so a row's first oc values are the
+    result."""
     if L % BLOCK or not 0 < L <= MAX_LEVEL:
         raise ValueError(f"L={L}: want a multiple of {BLOCK} in "
                          f"(0, {MAX_LEVEL}]")
@@ -122,8 +123,12 @@ def fused_and(blocks: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
             fused_and.launches += 1
     else:
         raise ValueError(f"no K2 kernel for device {dev}")
-    if compact:  # the row sort, through K4 on the card
-        out = sort_rows(out)
+    if compact:
+        # The members stand in base order, so they ascend: K4's compaction.
+        # A genuine 0xFFFFFFFF member, the largest u32 and so the last member
+        # of its row, reads as not kept and is rewritten as fill with the
+        # same bits at the same place: exact.
+        out = compact_rows(out, out != SENT)
     return out, oc
 
 

@@ -67,11 +67,15 @@ def decode_lists(blocks: torch.Tensor, row0: torch.Tensor, n: torch.Tensor,
 
 
 def gather_postings_arena(blocks, term_block_start, counts, term_idx,
-                          L: int):
+                          L: int, found=None):
     """Plain version of K1: (vals (Q, L) u32 bits, raw counts (Q,) int32).
-    Raw counts may exceed L; values past a row's count are undefined."""
+    Raw counts may exceed L; values past a row's count are undefined. With
+    `found` (Q,) bool, a row whose flag is False reports a raw count of 0
+    (and so has no defined value)."""
     assert L % BLOCK == 0
     t = term_idx.to(torch.int64)
     n = counts[t]
+    if found is not None:
+        n = torch.where(found, n, 0)
     vals = decode_lists(blocks, term_block_start[t], n, L)
     return from_i64(vals), n

@@ -8,7 +8,10 @@ programs whose results are compacted ascending and padded with 0xFFFFFFFF.
 0xFFFFFFFF is also a legal posting: counts, not the fill, define validity.
 
 These are the plain versions. Their row sorts and compactions run through
-K4 (ops/cuda_sort.sort_rows) on the card, as the concat classes' do;
+K4 on the card, as the concat classes' do: a concatenation of K lists is K
+ascending runs of L lanes (ops/cuda_sort.sort_rows with run=L, one merge
+for the dual step's pair union), and every compaction keeps lanes of a
+sorted row (ops/compaction.compact_rows);
 the AND that the delta tier serves goes through K3
 (ops/cuda_bool.intersect_many), whose plain version is `intersect_many`.
 """
@@ -42,7 +45,8 @@ def member_mask(lists: torch.Tensor, counts: torch.Tensor,
         vm = _valid_mask(L, counts)
         eq = probes[:, :, None] == lists[:, None, :]
         return (eq & vm[:, None, :]).any(dim=-1)
-    clean = sort_rows(torch.where(_valid_mask(L, counts), lists, SENT))
+    # the valid prefix ascends: its compaction is the masked ascending row
+    clean = compact_rows(lists, _valid_mask(L, counts))
     pos = torch.searchsorted(flip(clean), flip(probes))
     hit = clean.gather(1, pos.clamp(max=L - 1)) == probes
     return hit & (pos < counts[:, None])
@@ -74,7 +78,8 @@ def intersect_many(lists: torch.Tensor, counts: torch.Tensor,
 
 def _concat_valid(lists, counts, k_valid):
     """(kmask (Q, K, 1), flat (Q, K*L) with invalid lanes 0xFFFFFFFF,
-    valid (Q, K*L))."""
+    valid (Q, K*L)). Every L lanes of flat ascend: a list's valid prefix,
+    then the fill, the largest u32."""
     Q, K, L = lists.shape
     dev = lists.device
     kmask = (torch.arange(K, device=dev)[None, :, None]
@@ -97,7 +102,7 @@ def _intersect_sort(lists, counts, k_valid):
     last valid value is tested for it instead."""
     Q, K, L = lists.shape
     kmask, flat, _ = _concat_valid(lists, counts, k_valid)
-    svals = sort_rows(flat)
+    svals = sort_rows(flat, run=L)
     keep = run_reaches_k(svals, k_valid, K) & _first_of_run(svals) & (
         svals != SENT)
     last_idx = (counts.to(torch.int64) - 1).clamp(min=0)[:, :, None]
@@ -116,7 +121,7 @@ def union_many(lists: torch.Tensor, counts: torch.Tensor,
     Q, K, L = lists.shape
     _, flat, valid = _concat_valid(lists, counts, k_valid)
     n_valid = valid.sum(dim=1)
-    vals = sort_rows(flat)
+    vals = sort_rows(flat, run=L)
     in_region = (torch.arange(K * L, device=lists.device)[None, :]
                  < n_valid[:, None])
     uniq = in_region & _first_of_run(vals)

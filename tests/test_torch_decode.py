@@ -17,6 +17,7 @@ from inverted_index_2_tpu_torch.models.convert import snapshot_from_jax_arrays
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables
 from inverted_index_2_tpu_torch.ops import dict_search
 from inverted_index_2_tpu_torch.ops.cuda_decode import decode_postings
+from inverted_index_2_tpu_torch.ops.decode import gather_postings_arena
 from inverted_index_2_tpu_torch.utils.u32 import to_device, to_numpy_u32
 
 torch.set_num_threads(1)
@@ -99,3 +100,33 @@ def test_plain_decode_matches_jax(rng, L):
         assert np.array_equal(tv[q, :c], np.asarray(jv)[q, :c]), q
         assert np.array_equal(tv[q, :c], np.asarray(pv)[q, :c]), q
         assert np.array_equal(tv[q, :c], lists[ti][:c]), q
+
+
+@pytest.mark.parametrize("L", [128, 384])
+def test_plain_decode_with_found_matches_jax(rng, L):
+    """found= on the plain decode and on the wrapper's CPU path against the
+    JAX gather_postings_arena masked the same way: a row with found = False
+    reports a raw count of 0 and has no valid lane. Tolerance 0."""
+    lists = _width_lists(rng)
+    t = _tables(lists)
+    jsnap = jax_upload(t, stride_align=128)
+    snap = snapshot_from_jax_arrays(jsnap, device="cpu")
+    Q = 64
+    found = rng.random(Q) < 0.5
+    # a miss resolves to index 0, as hash_lookup_rows leaves it
+    term_idx = np.where(found, rng.integers(0, len(lists), size=Q),
+                        0).astype(np.int32)
+    jv, jc = jax_steps._JIT_DECODE(
+        jsnap.blocks, jsnap.term_block_start, jsnap.counts,
+        jnp.asarray(term_idx), L)
+    jc = np.where(found, np.asarray(jc), 0)
+    args = (snap.blocks, snap.term_block_start, snap.counts,
+            torch.from_numpy(term_idx), L, torch.from_numpy(found))
+    for fn in (gather_postings_arena, decode_postings):
+        tv, tc = fn(*args)
+        tv, tc = to_numpy_u32(tv), tc.numpy()
+        assert tc.dtype == np.int32 and np.array_equal(tc, jc)
+        assert (tc[~found] == 0).all() and (tc[found] > 0).all()
+        for q in range(Q):
+            c = min(int(tc[q]), L)
+            assert np.array_equal(tv[q, :c], np.asarray(jv)[q, :c]), q

@@ -1,5 +1,7 @@
-"""Kernels K1 (decode), K2 (fused AND), K3 (sorted-set AND) and K4 (row
-sort) on the card against their plain torch versions, and the engine on
+"""Kernels K1 (decode, with and without a found mask), K2 (fused AND), K3
+(sorted-set AND) and K4 (row sort from any row, from ascending runs, the
+two-run merge, the compaction of kept lanes) on the card against their
+plain torch versions, and the engine on
 CUDA against the engine on the CPU and a numpy oracle (AND, OR,
 pagination, staged lookup, and all of them with a delta tier live).
 
@@ -10,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from inverted_index_2_tpu_torch import QueryEngine
+from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine
 from inverted_index_2_tpu_torch.models import query_engine as port_qe
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
 from inverted_index_2_tpu_torch.ops import (
+    compaction,
     cuda_bool,
     cuda_decode,
     cuda_fused,
@@ -159,6 +162,148 @@ def test_sort_kernel_matches_plain(cuda, Q, M):
     assert cuda_sort.sort_rows.launches == before + 1
     assert got.shape == (Q, M)
     assert torch.equal(got, cuda_sort.sort_rows_torch(x))
+
+
+def runs_input(rng, Q, m, r):
+    """Rows of m lanes whose every r consecutive lanes ascend in u32 order:
+    sorted random values (across the sign bit), each run ending in a tail
+    of 0xFFFFFFFF of random length (none, some, or the whole run)."""
+    n_runs = -(-m // r)
+    x = rng.integers(0, 2**32, size=(Q, n_runs, r), dtype=np.uint64)
+    x = np.sort(x.astype(np.uint32), axis=2)
+    tail = rng.integers(0, r + 1, size=(Q, n_runs, 1))
+    tail[rng.random((Q, n_runs, 1)) < 0.3] = 0
+    x[np.arange(r)[None, None, :] >= r - tail] = 0xFFFFFFFF
+    return torch.from_numpy(
+        np.ascontiguousarray(x.reshape(Q, n_runs * r)[:, :m]).view(np.int32))
+
+
+@pytest.mark.parametrize("Q,m,r", [
+    (4096, 4096, 2048),      # the pair union at L = 2048
+    (77, 27136, 13568),      # ... at the top ladder level: no power of two
+    (33, 700, 400),          # two runs, the second short
+    (512, 32768, 4096),      # the dual OR: K runs of 2L
+    (2048, 8192, 128),       # a concat class: 128-lane blocks
+    (256, 65536, 128), (16, 262144, 128),
+    (24, 5000, 128), (40, 160, 128),
+    (64, 100000, 20000),     # runs longer than a tile, no power of two
+    (32, 3000, 1536),        # 3 * 512: sorted from runs of 512
+    (32, 3000, 24),          # no usable power of two: the whole network
+    (8, 500, 500), (8, 500, 600),   # one run: already sorted
+])
+def test_sort_from_runs_matches_plain(cuda, Q, m, r):
+    x = runs_input(np.random.default_rng(Q + m + r), Q, m, r).to(cuda)
+    cuda_sort.check_runs(x, r)
+    before = dict(cuda_sort.sort_rows.entries)
+    got = cuda_sort.sort_rows(x, run=r)
+    torch.cuda.synchronize()
+    assert got.shape == (Q, m)
+    assert torch.equal(got, cuda_sort.sort_rows_torch(x, run=r))
+    entry = None if r >= m else "two_run" if m <= 2 * r else "runs"
+    for name, n in cuda_sort.sort_rows.entries.items():
+        assert n == before[name] + (name == entry)
+
+
+def compact_input(rng, Q, m):
+    """Sorted rows with random keep masks; row 0 all 0xFFFFFFFF (kept and
+    not), row 1 keeps a genuine 0xFFFFFFFF last member, row 2 keeps all,
+    row 3 keeps none."""
+    vals = np.sort(rng.integers(0, 2**32, size=(Q, m), dtype=np.uint64)
+                   .astype(np.uint32), axis=1)
+    keep = rng.random((Q, m)) < rng.random((Q, 1))
+    vals[0] = 0xFFFFFFFF
+    vals[1, -1] = 0xFFFFFFFF
+    keep[1, -1] = True
+    keep[2] = True
+    keep[3] = False
+    return torch.from_numpy(vals.view(np.int32)), torch.from_numpy(keep)
+
+
+@pytest.mark.parametrize("Q,m", [(4096, 4096), (2048, 8192), (256, 65536),
+                                 (16, 262144), (8192, 160), (24, 5000),
+                                 (8, 1), (8, 257)])
+def test_compact_kernel_matches_plain(cuda, Q, m):
+    vals, keep = compact_input(np.random.default_rng(Q + m), Q, m)
+    vals, keep = vals.to(cuda), keep.to(cuda)
+    before = cuda_sort.sort_rows.entries["compact"]
+    got = compaction.compact_rows(vals, keep)
+    torch.cuda.synchronize()
+    assert cuda_sort.sort_rows.entries["compact"] == before + 1
+    assert torch.equal(got, compaction.compact_rows_torch(vals, keep))
+    assert torch.equal((got != -1).sum(dim=1)[2:],
+                       (keep & (vals != -1)).sum(dim=1)[2:])
+
+
+def test_compact_kernel_takes_a_row_pitch_and_refuses_other_strides(cuda):
+    vals, keep = compact_input(np.random.default_rng(5), 64, 1000)
+    vals, keep = vals.to(cuda), keep.to(cuda)
+    got = compaction.compact_rows(vals[:, :160], keep[:, :160])
+    want = compaction.compact_rows_torch(vals[:, :160].contiguous(),
+                                         keep[:, :160].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # a list of a (Q, K, L) matrix: pitch K * L
+    v3 = vals[:, :960].reshape(64, 3, 320)
+    k3 = keep[:, :960].reshape(64, 3, 320)
+    assert torch.equal(compaction.compact_rows(v3[:, 1, :], k3[:, 1, :]),
+                       compaction.compact_rows_torch(v3[:, 1, :], k3[:, 1, :]))
+    with pytest.raises(ValueError):
+        compaction.compact_rows(vals[:, ::2], keep[:, ::2])
+
+
+@pytest.mark.parametrize("L", [256, 2048])
+def test_decode_kernel_found_mask(cuda, L):
+    lists, t = _corpus(12)
+    snap = upload_tables(t, device=cuda)
+    rng = np.random.default_rng(13)
+    idx = torch.from_numpy(rng.integers(0, len(lists), size=3000)
+                           .astype(np.int32)).to(cuda)
+    found = torch.from_numpy(rng.random(3000) < 0.3).to(cuda)
+    idx = torch.where(found, idx, 0).to(torch.int32)  # a miss resolves to 0
+    pv, pc = gather_postings_arena(snap.blocks, snap.term_block_start,
+                                   snap.counts, idx, L, found)
+    # K1 writes into whatever torch.empty hands out: make that a pattern, so
+    # an untouched row still holds it
+    pattern = torch.full((3000, L), 0x5A5A5A5A, dtype=torch.int32,
+                         device=cuda)
+    ptr = pattern.data_ptr()
+    del pattern
+    kv, kc = cuda_decode.decode_postings(
+        snap.blocks, snap.term_block_start, snap.counts, idx, L, found)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, pc)
+    assert bool((kc[~found] == 0).all()) and int(kc[found].min()) > 0
+    assert _valid_equal(kv, pv, pc, L)
+    if kv.data_ptr() == ptr:  # the allocator reused the block
+        assert bool((kv[~found] == 0x5A5A5A5A).all())
+
+
+@pytest.mark.parametrize("L", [128, 512])
+def test_engine_cuda_and_of_no_terms_in_a_delta_window(cuda, tmp_path, L):
+    """k_valid = 0 with a non-empty base (the index holds the empty term):
+    the card answers as the CPU engine does in both regimes of the plain
+    AND (L = 128 keeps the base, L = 512 gives nothing)."""
+    ii = InvertedIndex(str(tmp_path))
+    for v in range(1, 30):
+        # filler terms keep the one-document delta below DELTA_FRACTION
+        ii.put([b"", b"a", b"t01"]
+               + [f"f{v:02d}-{j}".encode() for j in range(3)], v)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        eng = QueryEngine.from_index(ii, L=L, device=dev)
+        got[dev] = eng
+    ii.put([b"a", b"x"], 100)
+    k3 = cuda_bool.intersect_many.launches
+    rows = {}
+    for dev, eng in got.items():
+        assert eng.refresh(ii) and eng.delta is not None
+        rows[dev] = eng.boolean([[], [b"a"], [b"a", b"x"]], "and")
+    assert cuda_bool.intersect_many.launches > k3
+    for a, b in zip(rows["cuda"], rows["cpu"]):
+        assert np.array_equal(a, b)
+    want = np.arange(1, 30) if L == 128 else np.zeros(0)
+    assert np.array_equal(rows["cuda"][0], want)
+    assert np.array_equal(rows["cuda"][1], np.append(np.arange(1, 30), 100))
 
 
 def _or_oracle(lists, terms, q, op):
