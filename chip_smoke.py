@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (inverted_index_2_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--terms N] [--seed S]
+    python3 chip_smoke.py [--terms N] [--seed S] [--baseline-csrc DIR]
 
 Phases; any failure raises and the script exits non-zero:
   1. the card: CUDA must be available; prints nvidia-smi's name and power
@@ -12,14 +12,17 @@ Phases; any failure raises and the script exits non-zero:
      K4, row sort, merge and compaction), one nvcc per source in parallel;
   3. each kernel against its plain torch version on the card, bit-identical:
      K1 and K2 at the AND slice's shapes (Q=8192 queries of up to 8 terms,
-     L=2048, and the ladder level 8192), K1 also at the dual step's shape
+     L=2048, and the ladder level 8192), K2 in its three outputs (masked,
+     compact, the first P members), K1 also at the dual step's shape
      (65536 term slots, L=2048) with the delta tier's real found mask (rows
      with found = False stay untouched); K3 on the lists the delta window's
-     dual AND runs on (checked once phase 5 has made the delta): the pass
-     over one uniform batch (Q=8192, K=8, width 2L=4096) and the first
-     ladder re-serve dispatch at each level of the uniform stream (width
-     2 x level, with probe lists past the shared-memory stage), and on rows
-     with k_valid = 0 in both regimes of its plain version; K4's three
+     dual AND runs on (checked once phase 5 has made the delta): the pass over
+     one uniform batch (Q=8192, K=8, width 2L=4096) and the first ladder
+     re-serve dispatch at each level of the uniform stream (width 2 x
+     level), on a synthetic input that takes every branch of the kernel
+     (k3_branch_input), and on rows with k_valid = 0 in both regimes of its
+     plain version; with --baseline-csrc, K2 and K3 of that earlier version
+     are built too and timed on the same inputs; K4's three
      entries: the general sort at the concat classes' chunk shapes
      (16384, 1024) .. (256, 65536), at (64, 262144) and at one odd width,
      with rows of 0xFFFFFFFF and 0x80000000; the sort from ascending runs
@@ -31,8 +34,12 @@ Phases; any failure raises and the script exits non-zero:
      ladder level, the first concat-class chunk of the OR and OR-page
      streams), each also held against its precondition; each timed with
      CUDA events beside its plain version, torch.sort for K4, and its bound
-     (for K3, the lists its inputs need: a query's AND stops at its first
-     empty running result);
+     (for K3, the lists its inputs need, shortest first: a query's AND
+     stops at its first empty running result; for K2, the probe blocks a
+     member can lie in and the anchors in the base's range, with the
+     two earlier counts printed beside it: every probe row, and the probe
+     blocks that hold a value of the whole base; the bound takes the probes
+     shortest first and holds each against the values still alive);
   4. a small engine check: an InvertedIndex (the port's) built with put /
      put_removed / merge, served by QueryEngine.from_index(...) on the card,
      against a numpy oracle: lookup, AND, OR (with tombstones), prefix_p
@@ -56,14 +63,17 @@ Phases; any failure raises and the script exits non-zero:
      results against the per-term union of both tiers, K1, K3 and K4
      launched on the dual AND path, and one profiled pass of the dual AND
      and dual OR-page streams. K4's calls are counted by entry on every
-     path (no path may sort without a hint), and every profile prints K4's
-     device time by kernel.
+     path (no path may sort without a hint), K2's by output (no path may
+     take the masked rows); every profile prints K4's,
+     K2's and K3's device time by kernel, and the AND profiles fail if a
+     topk kernel or a K4 compaction ran.
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with each kernel's launches, error, time against its plain version
 and the library call, and bound, and nvidia-smi's name and power limit of
 the card. Times are mean gaps between CUDA events over back-to-back calls;
-for a kernel under 0.1 ms, where that gap is the host's enqueue time, "ms"
-is its device time by torch.profiler, and the phase-3 lines print both.
+for a kernel under 0.3 ms, where that gap can be the host's enqueue time,
+"ms" is its device time by torch.profiler, and the phase-3 lines print
+both.
 """
 from __future__ import annotations
 
@@ -91,10 +101,6 @@ DELTA_TERMS = 20_000  # 10% of the 200,000-term main, under DELTA_FRACTION
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
 
-# K3 stages a probe list in shared memory up to this many values and
-# searches a longer one in global memory (kStage in csrc/intersect.cu)
-K3_STAGE = 8192
-
 # K4 at the concat classes' chunk shapes (one 2^24-element chunk per class
 # up to SB = 128, then SB = 512), a long row past shared memory, and the
 # pagination window W = P * K = 160 padded to 256
@@ -105,6 +111,8 @@ SORT_REPORTED = (2048, 8192)  # the modal class of config-3 OR (SB = 64)
 
 # K4's kernels as the profiler names them
 K4_KERNELS = ("sort_tiles_kernel", "merge_runs_kernel", "compact_rows_kernel")
+# ... and K2's and K3's
+AND_KERNELS = ("fused_and_kernel", "intersect_kernel")
 
 
 class SmokeError(RuntimeError):
@@ -208,17 +216,18 @@ def time_ms(torch, fn, reps: int) -> float:
 def kernel_ms(torch, fn, reps: int):
     """A kernel wrapper's time: (ms on the card, ms between CUDA events),
     both per call over `reps` calls. The second is the mean gap between
-    back-to-back calls. For a kernel of under 0.1 ms that gap is the host's
-    time to enqueue the call, not the card's to run it, so there the first
-    is the summed device time of what fn() launches (torch.profiler); for a
-    longer kernel the two agree and the first is the second. A profiler
-    capture that records nothing is tried again; after three the event
-    time stands, and the line says so."""
+    back-to-back calls. For a short kernel that gap is the host's time to
+    enqueue the call (up to 0.1 ms for a wrapper that allocates its
+    outputs, more when the host is disturbed), not the card's to run it, so
+    under 0.3 ms the first is the summed device time of what fn() launches
+    (torch.profiler); for a longer kernel the two agree and the first is
+    the second. A profiler capture that records nothing is tried again;
+    after three the event time stands, and the line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     between = time_ms(torch, fn, reps)
-    if between >= 0.1:
+    if between >= 0.3:
         return between, between
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -238,6 +247,61 @@ def bound(nbytes: float, ops: float):
     """(bound ms, "bytes" or "operations")."""
     b, o = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
     return (max(b, o) * 1e3, "bytes" if b >= o else "operations")
+
+
+class Baseline:
+    """K2 and K3 of an earlier version of the package, built from its csrc
+    directory (--baseline-csrc) into a library of their own, to be timed on
+    the same inputs in the same process. That version's entry points are
+    tpi_fused_and(blocks, stride, rows, counts, k_valid, Q, K, L, out,
+    out_count, stream), which writes the masked rows, and
+    tpi_intersect(lists, counts, k_valid, Q, K, L, keep_base, out,
+    out_counts, stream)."""
+
+    def __init__(self, csrc: str):
+        import ctypes
+        from pathlib import Path
+
+        from inverted_index_2_tpu_torch.ops import _build
+
+        src = Path(csrc)
+        so = _build.BUILD_DIR / "libtpi_baseline.so"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             str(src / "fused_and.cu"), str(src / "intersect.cu")],
+            capture_output=True, text=True)
+        check(res.returncode == 0, f"baseline build failed:\n{res.stderr}")
+        print(f"[phase 2] baseline K2 and K3 of {src} built in "
+              f"{time.perf_counter() - t0:.4f} s")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        self.lib = ctypes.CDLL(str(so))
+        self.lib.tpi_fused_and.argtypes = [vp, i, vp, vp, vp, i, i, i, vp, vp,
+                                           vp]
+        self.lib.tpi_intersect.argtypes = [vp, vp, vp, i, i, i, i, vp, vp, vp]
+
+    def fused_and(self, torch, blocks, rows, counts, kv, L):
+        Q, K = rows.shape
+        out = torch.empty((Q, L), dtype=torch.int32, device=blocks.device)
+        oc = torch.empty(Q, dtype=torch.int32, device=blocks.device)
+        err = self.lib.tpi_fused_and(
+            blocks.data_ptr(), blocks.shape[1], rows.data_ptr(),
+            counts.data_ptr(), kv.data_ptr(), Q, K, L, out.data_ptr(),
+            oc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline tpi_fused_and: CUDA error {err}")
+        return out, oc
+
+    def intersect(self, torch, lists, counts, kv, keep_base):
+        Q, K, L = lists.shape
+        out = torch.empty((Q, L), dtype=torch.int32, device=lists.device)
+        oc = torch.empty(Q, dtype=torch.int32, device=lists.device)
+        err = self.lib.tpi_intersect(
+            lists.data_ptr(), counts.data_ptr(), kv.data_ptr(), Q, K, L,
+            keep_base, out.data_ptr(), oc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"baseline tpi_intersect: CUDA error {err}")
+        return out, oc
 
 
 def _blocks(counts, cap=None):
@@ -329,7 +393,216 @@ def phase_decode_dual(torch, eng, st, batch):
     return _check_k1(torch, d, idx.to(torch.int32), L_MAIN, found)
 
 
-def phase_kernels(torch, eng, terms_mat, uniform):
+def k2_work(torch, s, rows, cnts, kvt, L, budget=1 << 22):
+    """What K2's inputs ask of any implementation, counted in arena rows.
+    Values of block b of a list lie in [anchor_b, anchor_b+1), so a probe
+    block whose range holds no base value cannot hold a member. The probes
+    are taken shortest first and each is held against the base values that
+    are still alive, as K3's bound takes its lists: a probe is reached only
+    while the running AND is non-empty. Returns a dict of counts:
+      base      the base's blocks;
+      all       every probe block;
+      span, hit   probe blocks whose anchor lies in the range of the whole
+                base, and those whose own range holds a value of the whole
+                base (the count before the running AND was followed);
+      span_run, hit_run   the same against the values alive when the probe
+                is reached: what the bound counts.
+    Queries go in chunks of `budget` probe values."""
+    from inverted_index_2_tpu_torch.ops.decode import BLOCK, decode_lists
+
+    dev = rows.device
+    Q, K = rows.shape
+    kv = kvt.long().clamp(0, K)
+    c = cnts.long().clamp(min=0)
+    slots = torch.arange(K, device=dev)[None, :]
+    live = slots < kv[:, None]
+    live[:, 0] = False
+    n = {"base": int(((c[:, 0].clamp(max=L) + BLOCK - 1) // BLOCK).sum()),
+         "all": int(torch.where(live, (c + BLOCK - 1) // BLOCK, 0).sum()),
+         "span": 0, "hit": 0, "span_run": 0, "hit_run": 0}
+    if K == 1 or Q == 0:
+        return n
+    BIG = 1 << 33  # above every u32
+    anchors = s.blocks[:, 1].long() & 0xFFFFFFFF
+    # present probes shortest first (a stable order), absent ones last
+    order = torch.argsort(torch.where(live, c, BIG)[:, 1:], dim=1,
+                          stable=True) + 1
+    step = max(1, budget // max(L, int(c[:, 1:].max())))
+    for q0 in range(0, Q, step):
+        sl = slice(q0, q0 + step)
+        nbv = c[sl, 0].clamp(max=L)
+        base = decode_lists(s.blocks, rows[sl, 0], c[sl, 0], L)
+        valid = torch.arange(L, device=dev)[None, :] < nbv[:, None]
+        base = torch.where(valid, base, BIG)   # ascending, BIG past the count
+        alive = valid.clone()
+        bmin = base[:, 0]
+        bmax = torch.where(valid, base, -1).max(dim=1).values
+        zero = torch.zeros((base.shape[0], 1), dtype=torch.long, device=dev)
+        cum_all = torch.cat([zero, torch.cumsum(valid, 1)], dim=1)
+        for r in range(K - 1):
+            j = order[sl, r: r + 1]
+            act = live[sl].gather(1, j)[:, 0]
+            nj = torch.where(act, c[sl].gather(1, j)[:, 0], 0)
+            longest = int(nj.max())
+            if longest == 0:  # every present probe of this round is empty
+                alive &= ~act[:, None]
+                continue
+            nb = (nj + BLOCK - 1) // BLOCK
+            B = -(-longest // BLOCK)
+            b = torch.arange(B, device=dev)[None, :]
+            rowj = rows[sl].gather(1, j).long()
+            a0 = anchors[(rowj + b).clamp(max=anchors.shape[0] - 1)]
+            a0 = torch.where(b < nb[:, None], a0, BIG)
+            last = b + 1 >= nb[:, None]
+            a1 = torch.where(last, BIG, torch.cat(
+                [a0[:, 1:], torch.full_like(a0[:, :1], BIG)], dim=1))
+            lo = torch.searchsorted(base, a0)
+            hi = torch.searchsorted(base, a1)
+            block = (b < nb[:, None])
+            whole = block & (nbv > 0)[:, None]
+            n["span"] += int((whole & (a0 <= bmax[:, None])
+                              & (last | (a1 > bmin[:, None]))).sum())
+            n["hit"] += int((whole & (cum_all.gather(1, hi)
+                                      > cum_all.gather(1, lo))).sum())
+            smin = torch.where(alive, base, BIG).min(dim=1).values
+            smax = torch.where(alive, base, -1).max(dim=1).values
+            cum = torch.cat([zero, torch.cumsum(alive, 1)], dim=1)
+            reached = block & alive.any(dim=1)[:, None]
+            n["span_run"] += int((reached & (a0 <= smax[:, None])
+                                  & (last | (a1 > smin[:, None]))).sum())
+            n["hit_run"] += int((reached & (cum.gather(1, hi)
+                                            > cum.gather(1, lo))).sum())
+            M = B * BLOCK
+            pv = decode_lists(s.blocks, rowj[:, 0], nj, M)
+            pv = torch.where(torch.arange(M, device=dev)[None, :]
+                             < nj[:, None], pv, BIG + 1)
+            pos = torch.searchsorted(pv, base).clamp(max=M - 1)
+            alive &= (pv.gather(1, pos) == base) | ~act[:, None]
+    return n
+
+
+def phase_fused(torch, eng, uniform, baseline):
+    """Phase 3, K2: its masked, compact and width-P outputs on the first
+    uniform batch at L_MAIN and on the batch's longest bases at 4 L_MAIN,
+    each bit-identical to its plain version and timed beside it; with a
+    baseline, that version's kernel on the same inputs. Three bounds are
+    printed: the count of earlier versions of this script (every probe row
+    read once), the count that holds every probe against the whole base,
+    and the one the times are held against (k2_work: probes shortest first,
+    only the rows that a value still alive can lie in, and the anchors in
+    those values' range). Returns the kernels-line rows."""
+    from inverted_index_2_tpu_torch.utils.u32 import to_i64
+
+    from inverted_index_2_tpu_torch.models.steps import fused_rows
+    from inverted_index_2_tpu_torch.ops import compaction, cuda_fused
+    from inverted_index_2_tpu_torch.utils.u32 import to_device
+
+    s = eng.snap
+    dev = eng.device
+    stride = int(s.blocks.shape[1])
+    P = eng._STAGED_SMALL_P
+    qk, kv = eng._pack_boolean(eng._state, uniform[0])
+    kvt = to_device(kv, dev)
+    rows, cnts, need = fused_rows(s.keys, s.term_block_start, s.counts,
+                                  to_device(qk, dev), kvt, s.hash_slots,
+                                  s.max_probes)
+    top = torch.argsort(need, descending=True)[:256]
+    res = {}
+    for L, args in ((L_MAIN, (rows, cnts, kvt)),
+                    (4 * L_MAIN, (rows[top].contiguous(),
+                                  cnts[top].contiguous(),
+                                  kvt[top].contiguous()))):
+        Q, K = args[0].shape
+        po, pc = cuda_fused.fused_and_torch(s.blocks, *args, L)
+        plain = {"masked": lambda: cuda_fused.fused_and_torch(
+                     s.blocks, *args, L),
+                 "compact": lambda: compaction.compact_rows_torch(
+                     cuda_fused.fused_and_torch(s.blocks, *args, L)[0],
+                     po != -1),
+                 "width": lambda: cuda_fused.compact_small(
+                     cuda_fused.fused_and_torch(s.blocks, *args, L)[0], P)}
+        want = {"masked": po,
+                "compact": compaction.compact_rows_torch(po, po != -1),
+                "width": cuda_fused.compact_small(po, P)}
+        kern = {"masked": lambda: cuda_fused.fused_and(
+                    s.blocks, *args, L, compact=False),
+                "compact": lambda: cuda_fused.fused_and(s.blocks, *args, L),
+                "width": lambda: cuda_fused.fused_and(
+                    s.blocks, *args, L, width=P)}
+        n = k2_work(torch, s, *args, L)
+        c = args[1].long().clamp(min=0)
+        live = (torch.arange(1, K, device=dev)[None, :]
+                < args[2].long()[:, None])
+        # operations: one binary search of log2(L) steps per value of a
+        # probe block that is read (before: per probe value)
+        head = Q * 4 + Q * K * 8
+        old_ms, old_by = bound((n["base"] + n["all"]) * stride * 4
+                               + Q * L * 4 + head,
+                               int((c[:, 1:] * live).sum()) * math.log2(L))
+        whole_ms, whole_by = bound(
+            (n["base"] + n["hit"]) * stride * 4 + n["span"] * 4 + Q * L * 4
+            + head, n["hit"] * 128 * math.log2(L))
+        base_parent = None
+        if baseline is not None:
+            bo, bc = baseline.fused_and(torch, s.blocks, *args, L)
+            torch.cuda.synchronize()
+            check(torch.equal(bo, po) and torch.equal(bc, pc),
+                  f"K2 L={L}: the baseline's masked rows differ")
+            base_parent = kernel_ms(torch, lambda: baseline.fused_and(
+                torch, s.blocks, *args, L), 20)
+        for entry, width in (("masked", L), ("compact", L), ("width", P)):
+            ko, kc = kern[entry]()
+            torch.cuda.synchronize()
+            check(torch.equal(kc, pc), f"K2 {entry} L={L}: keep counts differ")
+            check(ko.shape == want[entry].shape,
+                  f"K2 {entry} L={L}: the output's shape is {ko.shape}")
+            err = int((to_i64(ko) - to_i64(want[entry])).abs().max())
+            check(err == 0 and torch.equal(ko, want[entry]),
+                  f"K2 {entry} L={L}: rows differ from the plain version "
+                  f"(max abs {err})")
+            k_ms, e_ms = kernel_ms(torch, kern[entry], 20)
+            p_ms = time_ms(torch, plain[entry], 2)
+            b_ms, b_by = bound(
+                (n["base"] + n["hit_run"]) * stride * 4 + n["span_run"] * 4
+                + Q * width * 4 + head, n["hit_run"] * 128 * math.log2(L))
+            check(b_ms <= k_ms, f"K2 {entry} L={L}: the kernel beat its "
+                  f"bound ({k_ms} < {b_ms} ms)")
+            extra = ""
+            if entry == "masked":
+                extra = (f"; bound as counted before {old_ms:.4f} ms "
+                         f"({old_by}: all {n['all']} probe blocks); with "
+                         f"every probe held against the whole base "
+                         f"{whole_ms:.4f} ms ({whole_by}: anchors in range "
+                         f"{n['span']}, rows {n['hit']})")
+                if base_parent is not None:
+                    extra += (f"; baseline kernel {base_parent[0]:.4f} ms "
+                              f"({base_parent[1]:.4f} by events)")
+            if entry == "width":
+                # what the width-P output replaces on the staged path
+                t_ms = time_ms(torch, lambda: cuda_fused.compact_small(
+                    kern["masked"]()[0], P), 10)
+                extra = (f"; masked kernel + topk (the path before) "
+                         f"{t_ms:.4f} ms by events")
+            print(f"[phase 3] K2 fused AND {entry} Q={Q} K={K} L={L}"
+                  f"{f' P={P}' if entry == 'width' else ''}: bit-identical "
+                  f"({int(kc.sum())} kept, {int((c[:, 0] > L).sum())} bases "
+                  f"> L; blocks: base {n['base']}, probes shortest first "
+                  f"against the values still alive: anchors in range "
+                  f"{n['span_run']}, rows a member can lie in "
+                  f"{n['hit_run']}), kernel "
+                  f"{k_ms:.4f} ms ({e_ms:.4f} by events), plain {p_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{k_ms / b_ms:.2f}x{extra}")
+            if L == L_MAIN:
+                name = {"masked": "fused_and.masked", "compact":
+                        "fused_and.compact", "width": "fused_and"}[entry]
+                res[name] = (err, k_ms, p_ms, None, b_ms, b_by)
+        del po, want
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_kernels(torch, eng, terms_mat, uniform, baseline=None):
     """Phase 3: K1, K2 and K4 against their plain versions on the card.
     Returns per kernel (max_abs_err, ms, plain_ms, library_ms, bound_ms,
     bound_by)."""
@@ -357,52 +630,7 @@ def phase_kernels(torch, eng, terms_mat, uniform):
     res["decode_postings"] = _check_k1(torch, s, idx, L_MAIN, None)
     _check_k1(torch, s, idx[longest].contiguous(), 4 * L_MAIN, None)
 
-    # K2 on the first uniform batch, then on its longest bases at 4L
-    qk, kv = eng._pack_boolean(eng._state, uniform[0])
-    kvt = to_device(kv, dev)
-    rows, cnts, need = fused_rows(s.keys, s.term_block_start, s.counts,
-                                  to_device(qk, dev), kvt, s.hash_slots,
-                                  s.max_probes)
-    top = torch.argsort(need, descending=True)[:256]
-    errs, times = [], []
-    for L, args in ((L_MAIN, (rows, cnts, kvt)),
-                    (4 * L_MAIN, (rows[top].contiguous(),
-                                  cnts[top].contiguous(),
-                                  kvt[top].contiguous()))):
-        ko, kc = cuda_fused.fused_and(s.blocks, *args, L, compact=False)
-        po, pc = cuda_fused.fused_and_torch(s.blocks, *args, L)
-        torch.cuda.synchronize()
-        check(torch.equal(kc, pc), f"K2 L={L}: keep counts differ")
-        err = int((to_i64(ko) - to_i64(po)).abs().max())
-        check(err == 0 and torch.equal(ko, po),
-              f"K2 L={L}: masked rows differ (max abs {err})")
-        k_ms, e_ms = kernel_ms(torch, lambda: cuda_fused.fused_and(
-            s.blocks, *args, L, compact=False), 20)
-        p_ms = time_ms(torch, lambda: cuda_fused.fused_and_torch(
-            s.blocks, *args, L), 2)
-        # bytes: the base rows (up to L values) and every probe row read
-        # once, the masked (Q, L) output and counts written once, the
-        # (Q, K) rows and counts read once; operations: one binary search
-        # of log2(L) steps per probe value
-        c = args[1].cpu().numpy().astype(np.int64)
-        live = np.arange(c.shape[1])[None, :] < args[2].cpu().numpy()[:, None]
-        c = np.where(live, c, 0)
-        base_b = _blocks(c[:, 0], L // 128).sum()
-        probe_b = _blocks(c[:, 1:]).sum()
-        Q, K = c.shape
-        b_ms, b_by = bound((base_b + probe_b) * stride * 4 + Q * L * 4
-                           + Q * 4 + Q * K * 8,
-                           c[:, 1:].sum() * math.log2(L))
-        print(f"[phase 3] K2 fused AND Q={Q} K={K} L={L}: bit-identical "
-              f"({int(kc.sum())} kept, "
-              f"{int((need > L).sum()) if L == L_MAIN else 0} bases > L), "
-              f"kernel {k_ms:.4f} ms ({e_ms:.4f} by events), plain "
-              f"{p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-        errs.append(err)
-        times.append((k_ms, p_ms, b_ms, b_by))
-    res["fused_and"] = (max(errs), times[0][0], times[0][1], None,
-                        times[0][2], times[0][3])
+    res.update(phase_fused(torch, eng, uniform, baseline))
     res.update(phase_sort(torch, dev))
     return res
 
@@ -606,27 +834,145 @@ def _dual_inputs(torch, st, qk, kv, lv):
     return lists, ncnt, kvt, _max_live(raw, kvt)
 
 
-def _check_k3(torch, lists, ncnt, kvt, label):
-    """K3 against its plain version on one input, whole rows and counts;
-    timed beside it. Returns (err, ms, plain ms, bound ms, bound_by, the
-    probe lists past K3_STAGE that the AND reaches)."""
-    from inverted_index_2_tpu_torch.ops import cuda_bool, setops
-    from inverted_index_2_tpu_torch.utils.u32 import to_i64
+def k3_branch_input(W: int, seed: int):
+    """A synthetic K3 input that takes every branch of csrc/intersect.cu,
+    as numpy: (lists (Q, 4, W) uint32 sorted unique within counts and
+    random beyond, counts (Q, 4) int32, k_valid (Q,) int32, the rows'
+    names). Sizes are cut to W; the windows past a ring slot need
+    W >= 12288."""
+    rng = np.random.default_rng(seed)
+    K, FF = 4, 0xFFFFFFFF
 
-    ko, kc = cuda_bool.intersect_many(lists, ncnt, kvt)
-    po, pc = setops.intersect_many(lists, ncnt, kvt)
-    torch.cuda.synchronize()
-    check(torch.equal(kc, pc), f"K3 {label}: counts differ from the plain "
-          "version")
-    err = int((to_i64(ko) - to_i64(po)).abs().max())
-    check(err == 0 and torch.equal(ko, po),
-          f"K3 {label}: rows differ from the plain version (max abs {err})")
-    k_ms, e_ms = kernel_ms(
-        torch, lambda: cuda_bool.intersect_many(lists, ncnt, kvt), 20)
-    p_ms = time_ms(torch, lambda: setops.intersect_many(lists, ncnt, kvt), 3)
-    # what these inputs need: list j is read only while the running AND of
-    # lists 0 .. j-1 is non-empty (the kernel stops a query there), so the
-    # plain version's running counts decide which lists count
+    def dense(n, start, step):
+        return (start + step * np.arange(min(n, W), dtype=np.int64))
+
+    def mix(keep, n, hi):
+        """`keep` and random values below `hi`, n values in all."""
+        extra = rng.integers(0, hi, size=2 * n)
+        extra = np.setdiff1d(extra, keep)[: max(0, min(n, W) - len(keep))]
+        return np.union1d(keep, extra)
+
+    rows = []
+    a = dense(W, 1000, 3)
+    tiny = a[[7, len(a) // 4, len(a) // 2, 3 * len(a) // 4, len(a) - 9]]
+    rows.append(("a base shorter than a warp against windows past a ring "
+                 "slot, the base not in slot 0",
+                 [a, tiny, np.union1d(a[::2], tiny)], 3))
+    base = dense(3000, 50, 11)
+    rows.append(("a base of several tiles, staged windows",
+                 [mix(base[::2], 4000, 40_000), base,
+                  mix(base[::3], 3500, 40_000)], 3))
+    rows.append(("a probe wholly outside the base's range",
+                 [dense(500, 10, 7), dense(800, 10**7, 3)], 2))
+    rows.append(("k_valid 0", [dense(300, 5, 2), dense(200, 5, 2)], 0))
+    rows.append(("k_valid 1", [dense(2500, 9, 5), dense(100, 9, 5)], 1))
+    rows.append(("a present list of count 0",
+                 [dense(400, 0, 3), np.zeros(0, np.int64), dense(300, 0, 3)],
+                 3))
+    common = np.append(dense(60, 2**31 - 30, 1), FF)
+    rows.append(("a genuine 0xFFFFFFFF in every list, values across the "
+                 "sign bit",
+                 [mix(common, 300 + 40 * j, 2**32 - 1) for j in range(K)], K))
+    rows.append(("a full tile against a window past a ring slot",
+                 [dense(W, 0, 1), dense(2000, 0, 16)], 2))
+    short = dense(10, 100, 97)
+    rows.append(("a window far longer than a short base",
+                 [mix(short, 1500, 1700), short], 2))
+    full = dense(W, 3, 2)
+    rows.append(("identical full lists: every lane kept", [full] * K, K))
+
+    Q = len(rows)
+    vals = rng.integers(0, 2**32, size=(Q, K, W), dtype=np.uint64)
+    counts = np.zeros((Q, K), dtype=np.int32)
+    kv = np.zeros(Q, dtype=np.int32)
+    for q, (_, ls, k) in enumerate(rows):
+        kv[q] = k
+        for j, v in enumerate(ls):
+            counts[q, j] = len(v)
+            vals[q, j, : len(v)] = v
+    return (vals.astype(np.uint32), counts, kv, [r[0] for r in rows])
+
+
+def k3_branch_counts(vals, counts, kv):
+    """The AND's counts for k3_branch_input, by numpy; a k_valid = 0 row
+    keeps list 0's prefix in the plain version's broadcast regime only."""
+    W = vals.shape[2]
+    out = []
+    for q in range(len(kv)):
+        if kv[q] == 0:
+            out.append(int(counts[q, 0]) if W * W <= 512 * 512 else 0)
+            continue
+        r = vals[q, 0, : counts[q, 0]]
+        for j in range(1, kv[q]):
+            r = np.intersect1d(r, vals[q, j, : counts[q, j]])
+        out.append(len(r))
+    return np.array(out)
+
+
+def k3_windows(torch, lists, ncnt, kvt):
+    """K3's plan for these inputs, emulated in torch: the base is the
+    shortest present list, in tiles of TILE values; of each probe list a tile
+    looks at the window [first value >= tile_min, first value > tile_max).
+    A window past a ring slot (less the alignment slack), or more than
+    DIRECT_RATIO times the tile's base, is searched where it lies, except a
+    tile's first probe (the shortest) of up to WHOLE_FIRST values, which is
+    copied whole; the sizes are the kernel's, from ops/cuda_bool.
+    Returns (the lists permuted shortest first with their counts, the
+    number of (tile, probe) windows that are staged, searched in place
+    because they pass a ring slot, searched in place because they are far
+    longer than the tile's base, and the last two among each tile's first
+    probe, which no early exit can skip)."""
+    from inverted_index_2_tpu_torch.ops.cuda_bool import (
+        DIRECT_RATIO, SLOT, TILE, WHOLE_FIRST)
+    from inverted_index_2_tpu_torch.utils.u32 import flip
+
+    Q, K, W = lists.shape
+    dev = lists.device
+    c = ncnt.long().clamp(0, W)
+    kv = kvt.long().clamp(0, K)
+    present = torch.arange(K, device=dev)[None, :] < kv[:, None]
+    order = torch.argsort(torch.where(present, c, W + 1), dim=1, stable=True)
+    ordered = lists.gather(1, order[:, :, None].expand(-1, -1, W))
+    oc = c.gather(1, order)
+    n0 = torch.where(kv > 0, oc[:, 0], 0)
+    n_t = max(1, -(-int(n0.max()) // TILE))
+    first = (torch.arange(n_t, device=dev) * TILE)[None, :].expand(Q, -1)
+    lastp = torch.minimum(first + TILE, n0[:, None]) - 1
+    fk = torch.where(torch.arange(W, device=dev) < oc[:, :, None],
+                     flip(ordered), 2**31 - 1)
+    tmin = fk[:, 0].gather(1, first.clamp(max=W - 1))
+    tmax = fk[:, 0].gather(1, lastp.clamp(min=0))
+    seq = fk.reshape(Q * K, W)
+    del fk
+
+    def find(v, right):
+        v = v[:, None, :].expand(-1, K, -1).reshape(Q * K, n_t).contiguous()
+        pos = torch.searchsorted(seq, v, right=right).reshape(Q, K, n_t)
+        return torch.minimum(pos, oc[:, :, None])
+
+    win = find(tmax, True) - find(tmin, False)
+    probe = (present & (torch.arange(K, device=dev) > 0)[None, :])[:, :, None]
+    probe = probe & (first < n0[:, None])[:, None, :] & (win > 0)
+    n_tile = (lastp - first + 1)[:, None, :]
+    whole = torch.zeros_like(probe)
+    whole[:, 1] = (oc[:, 1] <= WHOLE_FIRST)[:, None]
+    past = probe & ~whole & (win > SLOT - 8)
+    ratio = probe & ~whole & ~past & (win > n_tile * DIRECT_RATIO)
+    staged = probe & ~past & ~ratio
+    return (ordered, oc.to(torch.int32),
+            {"staged": int(staged.sum()), "past_slot": int(past.sum()),
+             "by_ratio": int(ratio.sum()),
+             "first_past_slot": int(past[:, 1].sum()),
+             "first_by_ratio": int(ratio[:, 1].sum())})
+
+
+def _k3_bound(torch, lists, ncnt, kvt):
+    """K3's bound on these inputs with the lists taken in the order given:
+    list j is needed only while the running AND of lists 0 .. j-1 is
+    non-empty, so the plain version's running counts decide which lists
+    count. Returns (bound ms, bound_by, valid values, needed values)."""
+    from inverted_index_2_tpu_torch.ops import setops
+
     Q, K, W = lists.shape
     kv = kvt.cpu().numpy().astype(np.int64)
     c = ncnt.cpu().numpy().astype(np.int64)
@@ -639,21 +985,93 @@ def _check_k3(torch, lists, ncnt, kvt, label):
             lists, ncnt, kvt.clamp(max=j + 1))[1].cpu().numpy()
     reached = live.copy()
     reached[:, 1:] &= run[:, :-1] > 0
-    # bytes: the reached valid prefixes read once, the (Q, W) rows and
+    # bytes: the needed valid prefixes read once, the (Q, W) rows and
     # counts written once, counts and k_valid read once; operations: a
     # binary search of log2(count + 1) steps per surviving base value and
-    # reached probe list
+    # needed probe list
     ops = (run[:, :-1] * np.log2(c[:, 1:] + 1) * reached[:, 1:]).sum()
     b_ms, b_by = bound((c * reached).sum() * 4 + Q * W * 4 + Q * 4
                        + Q * K * 4 + Q * 4, ops)
-    wide = int((reached[:, 1:] & (c[:, 1:] > K3_STAGE)).sum())
+    return b_ms, b_by, int(c.sum()), int((c * reached).sum())
+
+
+def _check_k3(torch, lists, ncnt, kvt, label, baseline=None, timed=True):
+    """K3 against its plain version on one input, whole rows and counts,
+    timed, and with a baseline that version's kernel too. The bound takes
+    the lists shortest first, as the kernel does (the count in list order
+    is printed beside it). Returns (max abs err, ms, plain ms, bound ms,
+    bound_by, the window plan)."""
+    from inverted_index_2_tpu_torch.ops import cuda_bool, setops
+    from inverted_index_2_tpu_torch.utils.u32 import to_i64
+
+    Q, K, W = lists.shape
+    po, pc = setops.intersect_many(lists, ncnt, kvt)
+    ko, kc = cuda_bool.intersect_many(lists, ncnt, kvt)
+    torch.cuda.synchronize()
+    check(torch.equal(kc, pc), f"K3 {label}: counts differ from the plain "
+          "version")
+    err = int((to_i64(ko) - to_i64(po)).abs().max())
+    check(err == 0 and torch.equal(ko, po),
+          f"K3 {label}: rows differ from the plain version (max abs {err})")
+    del ko
+    ordered, ocnt, plan = k3_windows(torch, lists, ncnt, kvt)
+    if not timed:
+        return err, None, None, None, None, plan
+    k_ms, e_ms = kernel_ms(torch, lambda: cuda_bool.intersect_many(
+        lists, ncnt, kvt), 20)
+    p_ms = time_ms(torch, lambda: setops.intersect_many(lists, ncnt, kvt), 3)
+    b_ms, b_by, n_valid, n_need = _k3_bound(torch, ordered, ocnt, kvt)
+    o_ms, _, _, o_need = _k3_bound(torch, lists, ncnt, kvt)
+    del ordered
+    check(b_ms <= k_ms, f"K3 {label}: the kernel beat its bound "
+          f"({k_ms} < {b_ms} ms)")
+    extra = ""
+    if baseline is not None:
+        keep_base = int(W * W <= setops._BROADCAST_LIMIT)
+        bo, bc = baseline.intersect(torch, lists, ncnt, kvt, keep_base)
+        torch.cuda.synchronize()
+        check(torch.equal(bo, po) and torch.equal(bc, pc),
+              f"K3 {label}: the baseline's rows differ")
+        t = kernel_ms(torch, lambda: baseline.intersect(
+            torch, lists, ncnt, kvt, keep_base), 20)
+        extra = f"; baseline kernel {t[0]:.4f} ms ({t[1]:.4f} by events)"
     print(f"[phase 3] K3 intersect {label} Q={Q} K={K} width={W}: "
-          f"bit-identical ({int(kc.sum())} kept, {int(c.sum())} valid "
-          f"values, {int((c * reached).sum())} reached, {wide} reached "
-          f"probe lists past {K3_STAGE}), kernel {k_ms:.4f} ms ({e_ms:.4f} by "
-          f"events), plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return err, k_ms, p_ms, b_ms, b_by, wide
+          f"bit-identical ({int(pc.sum())} kept, {n_valid} valid values, "
+          f"{n_need} needed shortest first, {o_need} in list order; windows "
+          f"{plan}); kernel {k_ms:.4f} ms ({e_ms:.4f} by events), plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; in list order "
+          f"{o_ms:.4f} ms), {k_ms / b_ms:.2f}x{extra}")
+    return err, k_ms, p_ms, b_ms, b_by, plan
+
+
+def check_k3_branches(torch, dev):
+    """Phase 3, K3 on the synthetic input that takes every branch, in both
+    regimes of the plain version (W = 512: a k_valid = 0 row keeps its
+    base), against the plain version and a numpy oracle."""
+    from inverted_index_2_tpu_torch.ops import cuda_bool
+
+    for W in (12288, 27136, 512):
+        vals, counts, kv, names = k3_branch_input(W, seed=W)
+        lists = torch.from_numpy(vals.view(np.int32)).to(dev)
+        ncnt = torch.from_numpy(counts).to(dev)
+        kvt = torch.from_numpy(kv).to(dev)
+        plan = _check_k3(torch, lists, ncnt, kvt, f"branches W={W}",
+                         timed=False)[5]
+        got = cuda_bool.intersect_many(lists, ncnt, kvt)[1].cpu().numpy()
+        want = k3_branch_counts(vals, counts, kv)
+        check(np.array_equal(got, want),
+              f"K3 branches W={W}: counts {got.tolist()} differ from the "
+              f"oracle's {want.tolist()}")
+        if W >= 12288:
+            # searches in place run in a tile's first batch, which no early
+            # exit skips, and staged windows beside them
+            check(plan["first_past_slot"] > 0 and plan["first_by_ratio"] > 0
+                  and plan["staged"] > 0,
+                  f"K3 branches W={W}: the input misses a branch: {plan}")
+        print(f"[phase 3] K3 intersect, {len(names)} synthetic rows at "
+              f"W={W} ({'; '.join(names)}): equal to the plain "
+              f"version and the oracle, counts {got.tolist()}, windows "
+              f"{plan}")
 
 
 def check_k3_no_terms(torch, dev):
@@ -737,32 +1155,31 @@ class CaptureK4:
         self.sort = self.compact = None
 
 
-def phase_intersect(torch, eng, st, batches):
+def phase_intersect(torch, eng, st, batches, baseline=None):
     """Phase 3, K3: bit-identical to its plain version, whole rows and
     counts, on the lists the dual step's AND runs on in the delta window
     (state `st`): the pass at L_MAIN over the first uniform batch, (Q, K,
     2 L_MAIN), then the first ladder re-serve dispatch at each level,
     made as _drain_levels makes them from the re-served rows of all the
-    `batches` (one stream). The top level must hold a reached probe list
-    past K3_STAGE, so K3's global-memory search runs. Each is timed beside
-    the plain version. The pair union that makes each of these inputs
-    dispatches K4's two-run merge and compaction: the first of each per
+    `batches` (one stream). Each is timed beside the plain version and,
+    with a baseline, that version's kernel. The pair union that makes each
+    of these inputs dispatches K4's two-run merge and compaction: the first of each per
     level is captured and held against its plain version and its
     precondition. No single PyTorch call computes a sorted-set AND,
-    so there is no library time. Returns the pass's numbers."""
+    so there is no library time. Returns the kernels-line row: the pass."""
     from inverted_index_2_tpu_torch.models.steps import _RESERVE_BUDGET
 
     packed = [eng._pack_boolean(st, b) for b in batches]
     items = []  # (need, level, qk row, kv) of every re-served row
-    res = None
+    res = {}
     for bi, (qk, kv) in enumerate(packed):
         with CaptureK4() as cap:
             lists, ncnt, kvt, need = _dual_inputs(torch, st, qk, kv, L_MAIN)
         if bi == 0:
             cap.verify(torch, f"dual pass at L={L_MAIN}")
             err, k_ms, p_ms, b_ms, b_by, _ = _check_k3(
-                torch, lists, ncnt, kvt, "dual pass")
-            res = (err, k_ms, p_ms, None, b_ms, b_by)
+                torch, lists, ncnt, kvt, "dual pass", baseline)
+            res["intersect_many"] = (err, k_ms, p_ms, None, b_ms, b_by)
         del cap
         del lists, ncnt
         need = need.cpu().numpy()
@@ -783,7 +1200,6 @@ def phase_intersect(torch, eng, st, batches):
         i += len(rows)
     check(len(firsts) >= 2, f"K3: the re-serves reach levels "
           f"{list(firsts)} only")
-    wide = 0
     for lv, rows in firsts.items():
         qk = eng._stack_rows([t[0] for t in rows])
         kv = np.array([t[1] for t in rows], dtype=np.int32)
@@ -791,12 +1207,11 @@ def phase_intersect(torch, eng, st, batches):
             lists, ncnt, kvt, _ = _dual_inputs(torch, st, qk, kv, lv)
         cap.verify(torch, f"re-serve level {lv}")
         del cap
-        wide += _check_k3(torch, lists, ncnt, kvt,
-                          f"re-serve level {lv} "
-                          f"({len(items)} re-served rows)")[5]
+        _check_k3(torch, lists, ncnt, kvt,
+                  f"re-serve level {lv} ({len(items)} re-served rows)",
+                  baseline)
         del lists, ncnt
         torch.cuda.empty_cache()
-    check(wide > 0, f"K3: no re-serve reached a probe list past {K3_STAGE}")
     return res
 
 
@@ -1064,9 +1479,15 @@ def run_stream(eng, term_list, term_bytes, stream, name, op="and",
     return batches, sorted(qps)[len(qps) // 2]
 
 
-def profile_stream(torch, serve, name):
+# after K2 the AND streams launch no compaction: neither torch.topk's
+# kernels nor K4's (lower case, matched within the profiler's kernel names)
+NO_COMPACTION = ("topk", "kthvalue", "bitonicsort", "compact_rows_kernel")
+
+
+def profile_stream(torch, serve, name, forbid=()):
     """Device busy share of one stream pass: the summed time of the kernels
-    and copies on the card over the pass's wall time (torch.profiler)."""
+    and copies on the card over the pass's wall time (torch.profiler). No
+    kernel whose name holds a word of `forbid` may have run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1079,16 +1500,22 @@ def profile_stream(torch, serve, name):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
+    banned = [e.key for e in events
+              if any(w in e.key.lower() for w in forbid)]
+    check(not banned, f"profile {name}: kernels that the path should no "
+          f"longer launch: {banned}")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     launches = sum(e.count for e in prof.key_averages()
                    if e.key == "cudaLaunchKernel")
     # K4's device time by kernel (csrc/sort_rows.cu) and its share
     k4 = {k: [0.0, 0] for k in K4_KERNELS}
+    k23 = {k: [0.0, 0] for k in AND_KERNELS}
     for e in events:
-        for k in K4_KERNELS:
-            if k in e.key:
-                k4[k][0] += e.self_device_time_total
-                k4[k][1] += e.count
+        for group in (k4, k23):
+            for k in group:
+                if k in e.key:
+                    group[k][0] += e.self_device_time_total
+                    group[k][1] += e.count
     k4_us = sum(v[0] for v in k4.values())
     print(f"[phase 5] profile {name}: wall {wall:.6f} s, device busy "
           f"{busy_us / 1e6:.6f} s = {busy_us / 1e6 / wall:.4f} of the pass, "
@@ -1097,7 +1524,10 @@ def profile_stream(torch, serve, name):
                       f"x{e.count}" for e in top)
           + f"; K4 {k4_us:.1f} us = {k4_us / max(busy_us, 1e-9):.4f} of the "
           "device time: "
-          + ", ".join(f"{k} {v[0]:.1f} us x{v[1]}" for k, v in k4.items()))
+          + ", ".join(f"{k} {v[0]:.1f} us x{v[1]}" for k, v in k4.items())
+          + "; K2 and K3: "
+          + ", ".join(f"{k} {v[0]:.1f} us x{v[1]}" for k, v in k23.items())
+          + (f"; none of {forbid} ran" if forbid else ""))
 
 
 def phase_main(torch, args, device="cuda"):
@@ -1209,6 +1639,10 @@ def main(argv=None) -> int:
     ap.add_argument("--terms", type=int, default=200_000,
                     help="dictionary size of the phase-5 corpus")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline-csrc", default=None, metavar="DIR",
+                    help="the csrc directory of an earlier version of the "
+                    "package: its K2 and K3 are built too and timed beside "
+                    "this version's on the same inputs")
     args = ap.parse_args(argv)
 
     import torch
@@ -1235,6 +1669,7 @@ def main(argv=None) -> int:
     print(f"[phase 2] kernels {built}, loaded in "
           f"{time.perf_counter() - t0:.4f} s: {_build.library_path().name}")
     print(_build.build_log.strip())
+    baseline = Baseline(args.baseline_csrc) if args.baseline_csrc else None
 
     eng, terms_mat, values, voffs = phase_main(torch, args)
     rng = np.random.default_rng(args.seed + 1)
@@ -1246,7 +1681,7 @@ def main(argv=None) -> int:
     def main_list(i):
         return values[voffs[i]:voffs[i + 1]]
 
-    kern = phase_kernels(torch, eng, terms_mat, uniform_b)
+    kern = phase_kernels(torch, eng, terms_mat, uniform_b, baseline)
     # K4 on real dispatches of the OR streams: the first concat-class chunk
     # of the full-result stream (which ships the sorted lanes and compacts
     # nothing) and of the page stream (whose compaction takes a column
@@ -1272,18 +1707,23 @@ def main(argv=None) -> int:
     per_path = {}
 
     entries = cuda_sort.sort_rows.entries  # K4's calls by entry
-    for name in entries:
-        launches["sort_rows." + name] = 0
+    # ... and K2's by output
+    split = {"sort_rows.": entries, "fused_and.": cuda_fused.fused_and.entries}
+    for prefix, d in split.items():
+        for name in d:
+            launches[prefix + name] = 0
 
     def drive(path, fn):
         for c in counters.values():
             c.launches = 0
-        for name in entries:
-            entries[name] = 0
+        for d in split.values():
+            for name in d:
+                d[name] = 0
         out = fn()
         torch.cuda.synchronize()
         got = {name: c.launches for name, c in counters.items()}
-        got.update({"sort_rows." + name: n for name, n in entries.items()})
+        for prefix, d in split.items():
+            got.update({prefix + name: n for name, n in d.items()})
         per_path[path] = got
         for name, n in got.items():
             launches[name] += n
@@ -1323,9 +1763,9 @@ def main(argv=None) -> int:
           f"OR pages {qps_pg:.1f}, lookup_staged {qps_lk:.1f}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     profile_stream(torch, lambda: eng.boolean_staged(
-        ub, "and", columnar=True, depth=4), "AND uniform")
+        ub, "and", columnar=True, depth=4), "AND uniform", NO_COMPACTION)
     profile_stream(torch, lambda: eng.boolean_staged(
-        zb, "and", columnar=True, depth=4), "AND zipf")
+        zb, "and", columnar=True, depth=4), "AND zipf", NO_COMPACTION)
     profile_stream(torch, lambda: eng.boolean_staged(
         orb, "or", columnar=True, depth=4), "OR uniform")
     profile_stream(torch, lambda: eng.boolean_staged(
@@ -1348,15 +1788,19 @@ def main(argv=None) -> int:
     kern["decode_postings.found"] = phase_decode_dual(
         torch, eng, delta["state"], d_uniform_b[0])
     check_k3_no_terms(torch, eng.device)
-    kern["intersect_many"] = phase_intersect(torch, eng, delta["state"],
-                                             d_uniform_b)
+    check_k3_branches(torch, eng.device)
+    kern.update(phase_intersect(torch, eng, delta["state"], d_uniform_b,
+                                baseline))
     del d_uniform_b
     phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive)
     print(f"[phase 5] kernel launches per path {per_path}; total {launches}")
     concat = ("sort_rows.runs",)
     dual = ("decode_postings", "sort_rows.two_run", "sort_rows.compact")
     for path, names in (
-            ("and uniform", ("fused_and",)), ("lookup", ("decode_postings",)),
+            ("and uniform", ("fused_and", "fused_and.width",
+                             "fused_and.compact")),
+            ("and zipf", ("fused_and.width",)),
+            ("lookup", ("decode_postings",)),
             ("or uniform", concat), ("or zipf", concat),
             ("or pages", concat + ("sort_rows.compact",)),
             ("lookup_staged", concat),
@@ -1375,25 +1819,32 @@ def main(argv=None) -> int:
               "without a hint")
         check(got["sort_rows"] == sum(got["sort_rows." + n] for n in entries),
               f"the {path} path's K4 entries do not add up")
+        # the card compacts inside K2: no path asks for the masked rows
+        check(got["fused_and.masked"] == 0,
+              f"the {path} path took K2's masked output "
+              f"{got['fused_and.masked']} times")
 
     src = "inverted_index_2_tpu_torch/csrc/"
     k1 = (src + "decode_postings.cu",
           "inverted_index_2_tpu/ops/pallas_decode.py:81")
+    k2 = (src + "fused_and.cu", "inverted_index_2_tpu/ops/pallas_fused.py:380")
+    k3 = (src + "intersect.cu", "inverted_index_2_tpu/ops/pallas_bool.py:113")
     k4 = (src + "sort_rows.cu", "inverted_index_2_tpu/ops/pallas_sort.py:86")
     # name -> (source, replaces, the launch count it reports). K1 has one
-    # entry (its second row is the dual step's shape). K4 has a row per
-    # entry that the paths launch: "sort_rows" is the sort from 128-lane
+    # entry (its second row is the dual step's shape). K2 has a row per
+    # output that the paths launch: "fused_and" is the width-P page of the
+    # staged stream, "fused_and.compact" the whole compacted row of the
+    # follow-ups; no path takes the masked rows (checked above). K3's row
+    # is the dual pass (its times at the re-serve levels are in the phase-3
+    # lines). K4 has a row per entry that the paths launch: "sort_rows" is the sort from 128-lane
     # runs at the modal concat class and counts every K4 call; no path
     # launches the general sort (checked above), whose times are in the
     # phase-3 lines only
     meta = {"decode_postings": k1 + ("decode_postings",),
             "decode_postings.found": k1 + ("decode_postings",),
-            "fused_and": (src + "fused_and.cu",
-                          "inverted_index_2_tpu/ops/pallas_fused.py:380",
-                          "fused_and"),
-            "intersect_many": (src + "intersect.cu",
-                               "inverted_index_2_tpu/ops/pallas_bool.py:113",
-                               "intersect_many"),
+            "fused_and": k2 + ("fused_and.width",),
+            "fused_and.compact": k2 + ("fused_and.compact",),
+            "intersect_many": k3 + ("intersect_many",),
             "sort_rows": k4 + ("sort_rows",),
             "sort_rows.two_run": k4 + ("sort_rows.two_run",),
             "compact_rows": k4 + ("sort_rows.compact",)}

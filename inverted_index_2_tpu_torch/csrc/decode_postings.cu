@@ -34,7 +34,6 @@
 //     every term it does not hold.
 // Blocks at or past the count are not written: those lanes of vals stay
 // undefined, as in the reference, and callers mask by count.
-#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,15 +44,6 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kStages = 4;
-
-// Lane's share of the 16-byte copies of arena row `src` (stride words) into
-// the staged row `dst`; the caller commits.
-__device__ __forceinline__ void stage_row(uint32_t* dst, const uint32_t* src,
-                                          int stride, int lane) {
-  for (int c = lane; c * 4 < stride; c += 32) {
-    __pipeline_memcpy_async(dst + c * 4, src + c * 4, 16);
-  }
-}
 
 __global__ void __launch_bounds__(kWarps * 32) decode_postings_kernel(
     const uint32_t* __restrict__ blocks, int stride, int pitch,
@@ -86,29 +76,12 @@ __global__ void __launch_bounds__(kWarps * 32) decode_postings_kernel(
       blocks + static_cast<int64_t>(term_block_start[t]) * stride;
   uint4* dst = reinterpret_cast<uint4*>(vals + q * K * tpi::kBlock) + lane;
 
-  // every iteration commits one group (an empty one past the last block), so
-  // "all but the newest kStages - 1 groups" is always "row k has arrived"
-  for (int k = 0; k < kStages - 1; ++k) {
-    if (k < n_blk) {
-      stage_row(ring + k * pitch, span + static_cast<int64_t>(k) * stride,
-                stride, lane);
-    }
-    __pipeline_commit();
-  }
-  for (int k = 0; k < n_blk; ++k) {
-    const int ahead = k + kStages - 1;
-    if (ahead < n_blk) {
-      stage_row(ring + (ahead % kStages) * pitch,
-                span + static_cast<int64_t>(ahead) * stride, stride, lane);
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(kStages - 1);
-    __syncwarp();  // every lane's copies of row k are visible
-    uint32_t v[4];
-    tpi::decode_block_warp_staged(ring + (k % kStages) * pitch, lane, v);
-    dst[k * (tpi::kBlock / 4)] = make_uint4(v[0], v[1], v[2], v[3]);
-    __syncwarp();  // row k's slot is free for the copy of row k + kStages
-  }
+  tpi::decode_rows_staged<kStages>(
+      ring, pitch, stride, lane, n_blk,
+      [&](int k) { return span + static_cast<int64_t>(k) * stride; },
+      [&](int k, const uint32_t v[4]) {
+        dst[k * (tpi::kBlock / 4)] = make_uint4(v[0], v[1], v[2], v[3]);
+      });
 }
 
 }  // namespace

@@ -14,7 +14,7 @@ from ..ops.cuda_bool import intersect_many
 from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import fused_and, reorder_smallest_base
 from ..ops.dict_search import resolve
-from ..utils.u32 import MASK32, flip, to_i64
+from ..utils.u32 import MASK32, to_i64
 
 
 def lookup_step(keys, blocks, term_block_start, counts, qkeys, L: int,
@@ -121,13 +121,6 @@ def boolean_step_dual(keys1, blocks1, tbs1, counts1, slots1,
     return out, oc, _max_live(raw, k_valid)
 
 
-def _compact_small(flat, P: int):
-    """First P ascending values of each row of a masked fused output ->
-    (Q, P). The kept values of a row are distinct and everything else is
-    0xFFFFFFFF, so this equals the JAX step's P iterative masked mins."""
-    return flip(torch.topk(flip(flat), P, dim=1, largest=False).values)
-
-
 def fused_rows(keys, term_block_start, counts, qkeys, k_valid, slots=None,
                max_probes: int = 0):
     """K2's inputs for a packed query batch (Q, K, W+1): resolve every
@@ -158,10 +151,11 @@ def boolean_fused_step(keys, blocks, term_block_start, counts, qkeys,
     being the keep count before the tombstone filter."""
     rows2, cnt2, need = fused_rows(keys, term_block_start, counts, qkeys,
                                    k_valid, slots, max_probes)
-    out, oc = fused_and(blocks, rows2, cnt2, k_valid, L,
-                        compact=small_p == 0)
+    out, oc = fused_and(blocks, rows2, cnt2, k_valid, L, width=small_p)
     if small_p:
-        small = _compact_small(out, small_p)
+        # the first small_p members come compacted out of K2 (on the CPU, out
+        # of its plain versions: the masked rows, then compact_small)
+        small = out
         oc_pre = oc
         oc = oc.clamp(max=small_p)
         if removed is not None and removed.shape[0] > 0:

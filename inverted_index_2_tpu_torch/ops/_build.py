@@ -96,7 +96,8 @@ def _bind(lib):
     lib.tpi_decode_postings.argtypes = [vp, i, vp, vp, vp, vp, i, i, vp, vp,
                                         vp]
     lib.tpi_decode_postings.restype = i
-    lib.tpi_fused_and.argtypes = [vp, i, vp, vp, vp, i, i, i, vp, vp, vp]
+    lib.tpi_fused_and.argtypes = [vp, i, vp, vp, vp, i, i, i, i, vp, vp,
+                                  vp]
     lib.tpi_fused_and.restype = i
     lib.tpi_compact_rows.argtypes = [vp, i64, vp, i64, vp, i64, i64, vp]
     lib.tpi_compact_rows.restype = i

@@ -4,8 +4,10 @@ Replaces inverted_index_2_tpu/ops/pallas_bool.py::intersect_pallas, the
 TPU twin of ops/setops.py::intersect_many. The AND of the delta tier's
 padded dual step (models/steps.py boolean_step_dual) runs through it, as
 the port's lookup_step runs K1 where JAX runs its XLA twin. Bound on the
-card by the bytes of the valid prefixes it reads and the rows it writes
-(see the kernel's header).
+card by the bytes of the valid values it reads and the rows it writes; what
+the design fights is the latency of dependent searches (see the kernel's
+header): the shortest present list is the base, the probes follow shortest
+first, one CTA a query.
 
 `intersect_many` takes the plain version (ops/setops.intersect_many) only
 for tensors on the CPU; for CUDA tensors it launches K3 or raises.
@@ -16,6 +18,14 @@ import torch
 
 from . import _build, setops
 from .cuda_decode import _check_int32
+
+# the kernel's sizes (csrc/intersect.cu), for scripts that emulate its plan
+TILE = 1024          # base values per tile (kTile)
+SLOT = 2048          # values in one slot of the staging ring (kSlot)
+WHOLE_FIRST = 1024   # a first probe this short is copied whole (kWholeFirst)
+DIRECT_RATIO = 32    # a window this many times the tile's base is searched
+                     # where it lies (kDirectRatio)
+MAX_K = 32           # lists per query the kernel takes (kMaxK)
 
 
 def intersect_many(lists: torch.Tensor, counts: torch.Tensor,
@@ -45,6 +55,8 @@ def intersect_many(lists: torch.Tensor, counts: torch.Tensor,
     Q, K, L = lists.shape
     if counts.shape != (Q, K) or k_valid.shape[0] != Q:
         raise ValueError("lists/counts/k_valid shapes disagree")
+    if not 1 <= K <= MAX_K or L < 1:
+        raise ValueError(f"K={K}, L={L}: want 1 <= K <= {MAX_K} and L >= 1")
     out = torch.empty((Q, L), dtype=torch.int32, device=dev)
     oc = torch.empty(Q, dtype=torch.int32, device=dev)
     if Q:

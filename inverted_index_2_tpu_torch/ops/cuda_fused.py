@@ -2,12 +2,19 @@
 with its plain torch version and the smallest-list-first reorder.
 
 Replaces inverted_index_2_tpu/ops/pallas_fused.py::fused_and_pallas. Bound
-on the card by probe bytes and the binary-search compares (see the kernel's
-header). The base list is held in shared memory, 4*L bytes, which caps the
-ladder levels K2 serves at MAX_LEVEL; a base list above it goes to the
-exact concat AND (ops/concat_bool.py).
+on the card by few bytes (the base's rows, the probe blocks whose range
+holds a base value, the output); what the design fights is the chain of
+dependent reads in front of each block (see the kernel's header). The base
+list is held in shared memory, 4*L bytes, which caps the ladder levels K2
+serves at MAX_LEVEL; a base list above it goes to the exact concat AND
+(ops/concat_bool.py).
 
-`fused_and` takes the plain version only for tensors on the CPU; for CUDA
+The kernel has a masked and a compact output. The TPU kernel could only
+mask, and its callers compacted afterwards (a row sort, or P masked
+minima); those stay as the plain versions (`compact_rows`,
+`compact_small`) and run on the CPU only.
+
+`fused_and` takes the plain versions only for tensors on the CPU; for CUDA
 tensors it launches K2 or raises.
 """
 from __future__ import annotations
@@ -18,9 +25,10 @@ from . import _build
 from .cuda_decode import _check_int32
 from .compaction import compact_rows
 from .decode import BLOCK, decode_lists
-from ..utils.u32 import MASK32, SENT, from_i64
+from ..utils.u32 import MASK32, SENT, flip, from_i64
 
 MAX_LEVEL = 16384       # largest L K2 takes: a 64 KiB base in shared memory
+MAX_K = 64              # slots per query the kernel takes (kMaxK)
 _PLAIN_BUDGET = 1 << 22  # values per probe matrix in the plain version
 _PAST_END = 1 << 33     # probe lanes past the count: above every u32
 
@@ -86,50 +94,75 @@ def fused_and_torch(blocks, rows, counts, k_valid, L: int):
     return out, oc
 
 
+def compact_small(flat: torch.Tensor, P: int) -> torch.Tensor:
+    """First P ascending values of each row of a masked fused output ->
+    (Q, P): the plain version of K2's compact output of width P. The kept
+    values of a row are distinct and everything else is 0xFFFFFFFF, so this
+    equals the JAX step's P iterative masked mins."""
+    return flip(torch.topk(flip(flat), P, dim=1, largest=False).values)
+
+
 def fused_and(blocks: torch.Tensor, rows: torch.Tensor, counts: torch.Tensor,
-              k_valid: torch.Tensor, L: int, compact: bool = True):
+              k_valid: torch.Tensor, L: int, compact: bool = True,
+              width: int = 0):
     """AND over arena-resident lists. rows/counts (Q, K) int32 with slot 0
     the smallest list (reorder_smallest_base), 0 for missing terms;
     k_valid (Q,) int32. Probe lists are walked to their full length; only a
-    base count over L needs a re-serve. Returns (vals (Q, L) u32 bits,
-    oc (Q,) int32): non-members are 0xFFFFFFFF, and with `compact` the
-    members are packed to the front so a row's first oc values are the
-    result."""
+    base count over L needs a re-serve. Returns (vals, oc (Q,) int32 the
+    number of members). vals holds u32 bits:
+      compact=False    (Q, L) masked: members in place, 0xFFFFFFFF elsewhere;
+      compact=True     (Q, L): the members ascending at the front, then
+                       0xFFFFFFFF, so a row's first oc values are the result;
+      width=P (0 < P <= L)  (Q, P): the first P members ascending, then
+                       0xFFFFFFFF; oc stays the full count.
+    On the card one kernel gives each of them. A genuine 0xFFFFFFFF member,
+    the largest u32 and so the last member of its row, has the fill's bits
+    and lands where the fill would: the plain compactions, which cannot tell
+    it from the fill, give the same rows."""
     if L % BLOCK or not 0 < L <= MAX_LEVEL:
         raise ValueError(f"L={L}: want a multiple of {BLOCK} in "
                          f"(0, {MAX_LEVEL}]")
+    if not 0 <= width <= L:
+        raise ValueError(f"width={width}: want 0 (off) or 1..L={L}")
     dev = blocks.device
     if dev.type == "cpu":
         out, oc = fused_and_torch(blocks, rows, counts, k_valid, L)
-    elif dev.type == "cuda":
-        _check_int32("blocks", blocks, 2, dev)
-        _check_int32("rows", rows, 2, dev)
-        _check_int32("counts", counts, 2, dev)
-        _check_int32("k_valid", k_valid, 1, dev)
-        Q, K = rows.shape
-        if counts.shape != rows.shape or k_valid.shape[0] != Q:
-            raise ValueError("rows/counts/k_valid shapes disagree")
-        out = torch.empty((Q, L), dtype=torch.int32, device=dev)
-        oc = torch.empty(Q, dtype=torch.int32, device=dev)
-        if Q:
-            lib = _build.library()
-            with torch.cuda.device(dev):
-                err = lib.tpi_fused_and(
-                    blocks.data_ptr(), blocks.shape[1], rows.data_ptr(),
-                    counts.data_ptr(), k_valid.data_ptr(), Q, K, L,
-                    out.data_ptr(), oc.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
-            _build.check(err, "tpi_fused_and")
-            fused_and.launches += 1
-    else:
+        if width:
+            out = compact_small(out, width)
+        elif compact:
+            out = compact_rows(out, out != SENT)
+        return out, oc
+    if dev.type != "cuda":
         raise ValueError(f"no K2 kernel for device {dev}")
-    if compact:
-        # The members stand in base order, so they ascend: K4's compaction.
-        # A genuine 0xFFFFFFFF member, the largest u32 and so the last member
-        # of its row, reads as not kept and is rewritten as fill with the
-        # same bits at the same place: exact.
-        out = compact_rows(out, out != SENT)
+    _check_int32("blocks", blocks, 2, dev)
+    _check_int32("rows", rows, 2, dev)
+    _check_int32("counts", counts, 2, dev)
+    _check_int32("k_valid", k_valid, 1, dev)
+    Q, K = rows.shape
+    if counts.shape != rows.shape or k_valid.shape[0] != Q:
+        raise ValueError("rows/counts/k_valid shapes disagree")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K}: want 1 <= K <= {MAX_K}")
+    if blocks.shape[1] % 4 or blocks.data_ptr() % 16:
+        raise ValueError("blocks: K2 wants 16-byte-aligned arena rows "
+                         f"(stride {blocks.shape[1]} words)")
+    P = width or (L if compact else 0)  # 0: the masked output
+    out = torch.empty((Q, P or L), dtype=torch.int32, device=dev)
+    oc = torch.empty(Q, dtype=torch.int32, device=dev)
+    if Q:
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.tpi_fused_and(
+                blocks.data_ptr(), blocks.shape[1], rows.data_ptr(),
+                counts.data_ptr(), k_valid.data_ptr(), Q, K, L, P,
+                out.data_ptr(), oc.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "tpi_fused_and")
+        fused_and.launches += 1
+        fused_and.entries["width" if width else
+                          "compact" if compact else "masked"] += 1
     return out, oc
 
 
 fused_and.launches = 0  # K2 launches in this process
+fused_and.entries = {"masked": 0, "compact": 0, "width": 0}  # by output

@@ -10,9 +10,8 @@ import jax.numpy as jnp
 from inverted_index_2_tpu.models import steps as jax_steps
 from inverted_index_2_tpu.models.snapshot import upload_tables as jax_upload
 
-from inverted_index_2_tpu_torch.models import steps
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
-from inverted_index_2_tpu_torch.ops import concat_bool, setops
+from inverted_index_2_tpu_torch.ops import concat_bool, cuda_fused, setops
 from inverted_index_2_tpu_torch.utils.u32 import to_device, to_numpy_u32
 
 torch.set_num_threads(1)
@@ -51,7 +50,7 @@ def test_compact_small_matches_jax(rng):
         pos = np.sort(rng.choice(L, size=n, replace=False))
         flat[q, pos] = np.sort(rng.choice(10**9, size=n, replace=False))
     flat[1, 3] = FF  # a genuine member, same bits as the mask
-    got = to_numpy_u32(steps._compact_small(to_device(flat, "cpu"), P))
+    got = to_numpy_u32(cuda_fused.compact_small(to_device(flat, "cpu"), P))
     assert np.array_equal(got, np.asarray(
         jax_steps._compact_small(jnp.asarray(flat), P)))
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine
 from inverted_index_2_tpu_torch.models import query_engine as port_qe
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
@@ -43,7 +44,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _corpus(seed, n_terms=300):
+def _corpus(seed, n_terms=300, extra=()):
     rng = np.random.default_rng(seed)
     lists = []
     for i in range(n_terms):
@@ -54,6 +55,7 @@ def _corpus(seed, n_terms=300):
         lists.append(np.unique(((start + np.cumsum(g)) % 2**32)
                                .astype(np.uint32)))
     lists.append(np.array([0, 7, 2**32 - 1], dtype=np.uint32))
+    lists.extend(extra)
     voffs = np.zeros(len(lists) + 1, dtype=np.int64)
     np.cumsum([len(v) for v in lists], out=voffs[1:])
     blob = b"".join(f"t{i:05d}".encode() for i in range(len(lists)))
@@ -87,28 +89,68 @@ def test_decode_kernel_matches_plain(cuda, L, seed):
     assert _valid_equal(kv, pv, pc, L)
 
 
+def _edge_lists():
+    """Lists for K2's block tests. `wide`: 384 values whose blocks need 8,
+    16 and 8 bits. `dense`: 300 consecutive values, so blocks of bit width
+    0. `touch`: values equal to a block's anchor (wide[128]), to a block's
+    last value (wide[255], dense[127]) and to neither."""
+    wide = np.cumsum(np.concatenate([np.full(128, 3), np.full(128, 700),
+                                     np.full(128, 5)])).astype(np.uint32)
+    dense = (np.arange(300) + 70_000).astype(np.uint32)
+    touch = np.unique(np.array(
+        [wide[0], wide[127], wide[128], wide[129] + 1, wide[255], wide[256],
+         wide[383], dense[0], dense[127], dense[128], dense[299], 90_000],
+        dtype=np.uint32))
+    return [wide, dense, touch, np.union1d(wide, dense).astype(np.uint32)]
+
+
+@pytest.mark.parametrize("mode", ["masked", "compact", "width8"])
 @pytest.mark.parametrize("L,K,seed", [(256, 8, 3), (2048, 8, 4),
                                        (MAX_LEVEL, 8, 5), (512, 16, 6),
-                                       (2048, 2, 7)])
-def test_fused_kernel_matches_plain(cuda, L, K, seed):
-    lists, t = _corpus(seed)
+                                       (2048, 2, 7), (256, 1, 8)])
+def test_fused_kernel_matches_plain(cuda, L, K, seed, mode):
+    lists, t = _corpus(seed, extra=_edge_lists())
     snap = upload_tables(t, device=cuda)
     rng = np.random.default_rng(seed)
     Q = 512
     idx = rng.integers(0, len(lists), size=(Q, K))
     kv = rng.integers(1, K + 1, size=Q).astype(np.int32)
+    if K >= 2:
+        # the block tests: `touch` against the lists it touches, both ways
+        n = len(lists)
+        wide, dense, touch, both = n - 4, n - 3, n - 2, n - 1
+        pairs = [(touch, wide), (touch, dense), (touch, both),
+                 (wide, touch), (dense, both), (both, touch)]
+        for r, pair in enumerate(pairs):
+            idx[r, :2], kv[r] = pair, 2
+    kv[6::9] = K                       # every slot live ...
     kmask = np.arange(K)[None, :] < kv[:, None]
     rows = np.where(kmask, t.tbs[idx], 0).astype(np.int32)
     cnts = np.where(kmask, t.counts[idx], 0).astype(np.int32)
-    cnts[::17, 1] = 0  # missing terms
+    cnts[10::17, min(1, K - 1)] = 0  # missing terms
     rows, cnts, _ = reorder_smallest_base(
         torch.from_numpy(rows), torch.from_numpy(cnts), torch.from_numpy(kv))
+    kv[6::9] = K + 3                   # ... and a k_valid above K walks K
     args = (rows.to(cuda), cnts.to(cuda), torch.from_numpy(kv).to(cuda), L)
-    out, oc = fused_and(snap.blocks, *args, compact=False)
     pout, poc = fused_and_torch(snap.blocks, *args)
+    before = cuda_fused.fused_and.launches
+    if mode == "masked":
+        out, oc = fused_and(snap.blocks, *args, compact=False)
+    elif mode == "compact":
+        out, oc = fused_and(snap.blocks, *args)
+        pout = compaction.compact_rows_torch(pout, pout != -1)
+    else:
+        out, oc = fused_and(snap.blocks, *args, width=8)
+        pout = cuda_fused.compact_small(pout, 8)
     torch.cuda.synchronize()
+    assert cuda_fused.fused_and.launches == before + 1
+    assert out.shape == pout.shape
     assert torch.equal(oc, poc) and torch.equal(out, pout)
     assert int((oc > 0).sum()) > 0
+    if K >= 2:  # the base is the shorter list's first L values
+        for r, pair in enumerate(pairs):
+            small, big = sorted((lists[i] for i in pair), key=len)
+            assert oc[r] == len(np.intersect1d(small[:L], big)) > 0
 
 
 def test_engine_cuda_matches_cpu(cuda, monkeypatch):
@@ -371,7 +413,7 @@ def intersect_input(dev, seed, Q, K, W):
     vals = off + torch.cumsum(ints(1, 4, (Q, K, W)), dim=2)
     counts = ints(0, W + 1, (Q, K))
     counts[::5] = W
-    counts[2::7, 1] = 0
+    counts[2::7, min(1, K - 1)] = 0
     kv = ints(1, K + 1, (Q,))
     kv[3::11] = 0
     counts[3::11] = 0
@@ -387,10 +429,8 @@ def intersect_input(dev, seed, Q, K, W):
             kv.to(torch.int32))
 
 
-@pytest.mark.parametrize("Q,K,W", [(8192, 8, 4096), (256, 8, 16384),
-                                   (16, 4, 131072), (64, 8, 256)])
-def test_intersect_kernel_matches_plain(cuda, Q, K, W):
-    lists, counts, kv = intersect_input(cuda, Q * K + W, Q, K, W)
+def _check_intersect(lists, counts, kv):
+    Q, K, W = lists.shape
     before = cuda_bool.intersect_many.launches
     out, oc = cuda_bool.intersect_many(lists, counts, kv)
     torch.cuda.synchronize()
@@ -399,8 +439,32 @@ def test_intersect_kernel_matches_plain(cuda, Q, K, W):
     torch.cuda.synchronize()
     assert out.shape == (Q, W)
     assert torch.equal(oc, poc) and torch.equal(out, pout)
+    return out, oc
+
+
+@pytest.mark.parametrize("Q,K,W", [
+    (8192, 8, 4096), (256, 8, 16384), (16, 4, 131072), (64, 8, 256),
+    (154, 8, 27136),   # the top ladder level: no power of two
+    (64, 4, 5001),     # rows that are not 16-byte aligned: copied by words
+    (300, 1, 3000), (32, 32, 2048)])
+def test_intersect_kernel_matches_plain(cuda, Q, K, W):
+    lists, counts, kv = intersect_input(cuda, Q * K + W, Q, K, W)
+    out, oc = _check_intersect(lists, counts, kv)
     assert int((oc > 0).sum()) > Q // 8
     assert int((out == -1).sum(dim=1).lt(W).sum()) > 0
+
+
+@pytest.mark.parametrize("W", [12288, 27136, 512])
+def test_intersect_kernel_branches(cuda, W):
+    """Every branch of K3 (chip_smoke.k3_branch_input names them), in both
+    regimes of the plain version (W = 512: a k_valid = 0 row keeps its
+    base)."""
+    vals, counts, kv, names = chip_smoke.k3_branch_input(W, seed=W)
+    lists = torch.from_numpy(vals.view(np.int32)).to(cuda)
+    out, oc = _check_intersect(lists, torch.from_numpy(counts).to(cuda),
+                               torch.from_numpy(kv).to(cuda))
+    want = chip_smoke.k3_branch_counts(vals, counts, kv)
+    assert oc.cpu().numpy().tolist() == want.tolist(), names
 
 
 def test_engine_cuda_with_delta_matches_cpu(cuda):

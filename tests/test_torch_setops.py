@@ -231,3 +231,35 @@ def test_boolean_step_dual_matches_jax(op, L):
         if need[i] <= L:
             assert np.array_equal(out[i, : oc[i]], w), (i, q)
     assert 0 < int((need > L).sum()) < len(queries)
+
+
+@pytest.mark.parametrize("package", ["port", "jax"])
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("L", [128, 512])  # broadcast and sort regimes
+def test_intersect_many_ignores_the_order_of_present_lists(L, seed, package):
+    """The AND's whole rows and counts do not depend on the order of slots
+    0 .. k_valid-1, in either package and either regime. K3 on the card
+    relies on it: it walks the shortest present list, whichever slot holds
+    it, and probes the others shortest first."""
+    vals, counts, kv = _lists(seed + 3 * L, 24, 6, L)
+    kv = np.maximum(kv, 1).astype(np.int32)  # rows with a list present
+    rng = np.random.default_rng(seed)
+    perm = np.tile(np.arange(6), (24, 1))
+    for q in range(24):
+        perm[q, : kv[q]] = rng.permutation(kv[q])
+    assert (perm != np.arange(6)).any(axis=1).sum() > 8
+    pvals = np.take_along_axis(vals, perm[:, :, None], axis=1)
+    pcounts = np.take_along_axis(counts, perm, axis=1)
+
+    def run(v, c):
+        if package == "port":
+            o, oc = setops.intersect_many(*_port(v, c, kv))
+            return to_numpy_u32(o), oc.numpy()
+        o, oc = jax_setops.intersect_many(jnp.asarray(v), jnp.asarray(c),
+                                          jnp.asarray(kv))
+        return np.asarray(o), np.asarray(oc)
+
+    out, oc = run(vals, counts)
+    pout, poc = run(pvals, pcounts)
+    assert np.array_equal(oc, poc) and np.array_equal(out, pout)
+    assert int(oc.sum()) > 0 and int((oc == 0).sum()) > 0
