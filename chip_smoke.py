@@ -47,6 +47,10 @@ Phases; any failure raises and the script exits non-zero:
      and queries beyond the largest concat class; then refresh() through an
      additive delta, a tombstone-only refresh, a promotion and a compaction
      rebuild, every state against the oracle of the index's host reads;
+     then checkpoints: a round trip of the tables and fingerprint, and
+     from_checkpoint against the index unchanged, after an additive put (a
+     delta) and after a merge (a rebuild), with lookup, read_range and
+     prefix_search on the host route and the device route in every state;
   5. the main paths at a realistic size: the config-3 deployment of
      BASELINE.md (Boolean queries of 2-8 terms, mean posting length 1k), cut
      from 10M to --terms terms: boolean_staged AND (columnar, depth 4) over
@@ -55,7 +59,18 @@ Phases; any failure raises and the script exits non-zero:
      pages (prefix_p=32, depth 4) over the 8 uniform batches, and
      lookup_staged over 4 batches of the queries' first terms; three timed
      passes each, sampled results against the oracle, each path's kernel
-     launches, then one profiled pass of each stream (device busy share).
+     launches, then one profiled pass of each stream (device busy share);
+     these streams run on the device routes (TPI_HOST_BOOL=0, and
+     lookup_staged on an engine without the host tables). Then the host
+     route at the same size (TPI_HOST_BOOL=all): the AND streams, the
+     full-result OR over 2 uniform batches and lookup_staged, against the
+     oracle, with their QPS beside the device route's and no kernel
+     launched; the link probe and the route auto picks per op; the hybrid
+     AND stream (TPI_HYBRID=1), bit-identical to the device's, with both
+     sides serving; prefix_search of 256 prefixes and read_range over two
+     windows on the device route (K1) against the host route and the
+     oracle; a warm start from a checkpoint of the tables (serving before
+     and after the side-stream upload is published); warmup() and stats().
      Then the delta window: a delta of 20,000 terms (10% of main) published
      as refresh() publishes it, and the dual step's streams over the union
      vocabulary: AND over 4 uniform and 4 Zipf batches, OR pages over the 4
@@ -70,16 +85,20 @@ Phases; any failure raises and the script exits non-zero:
 The last line is {"ok": true, "device": {...}}; before it come one JSON
 line with each kernel's launches, error, time against its plain version
 and the library call, and bound, and nvidia-smi's name and power limit of
-the card. Times are mean gaps between CUDA events over back-to-back calls;
-for a kernel under 0.3 ms, where that gap can be the host's enqueue time,
-"ms" is its device time by torch.profiler, and the phase-3 lines print
-both.
+the card. A kernel's "ms" is one rule for every row (kernel_ms): CUDA
+events around each call alone, made with the L2 emptied and the host's
+enqueue hidden, so that it holds against a bound over the memory rate;
+every row must not beat its bound. The phase-3 lines print beside it the
+gap between back-to-back calls. Plain and library times are gaps between
+CUDA events over back-to-back calls.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -100,6 +119,11 @@ DELTA_TERMS = 20_000  # 10% of the 200,000-term main, under DELTA_FRACTION
 # table's rate for ALU work, taken for the integer compares and shifts)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# a read this large evicts the H100's 50 MB L2, and a spin this long
+# (about 0.5 ms at its 1.98 GHz) outlasts the host's enqueue of a wrapper
+# (kernel_ms)
+L2_FLUSH_BYTES = 256 << 20
+SPIN_CYCLES = 1_000_000
 
 # K4 at the concat classes' chunk shapes (one 2^24-element chunk per class
 # up to SB = 128, then SB = 512), a long row past shared memory, and the
@@ -214,33 +238,30 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def kernel_ms(torch, fn, reps: int):
-    """A kernel wrapper's time: (ms on the card, ms between CUDA events),
-    both per call over `reps` calls. The second is the mean gap between
-    back-to-back calls. For a short kernel that gap is the host's time to
-    enqueue the call (up to 0.1 ms for a wrapper that allocates its
-    outputs, more when the host is disturbed), not the card's to run it, so
-    under 0.3 ms the first is the summed device time of what fn() launches
-    (torch.profiler); for a longer kernel the two agree and the first is
-    the second. A profiler capture that records nothing is tried again;
-    after three the event time stands, and the line says so."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """A kernel wrapper's time: (ms, ms back to back), per call over `reps`
+    calls. The first is the `ms` of every row of the kernels line, timed as
+    a bound over the memory rate assumes: CUDA events around each call
+    alone, the call made after a read of L2_FLUSH_BYTES has evicted the L2
+    (its inputs come from memory, and no dirty line of an earlier call is
+    left to write back) and behind a spin of the stream (SPIN_CYCLES) that
+    hides the host's time to enqueue it. The second is the mean gap between
+    back-to-back calls (time_ms), whose inputs may sit in the L2 and which,
+    for a short kernel, is the host's time to enqueue the call."""
     between = time_ms(torch, fn, reps)
-    if between >= 0.3:
-        return between, between
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps, between
-    print("[phase 3] the profiler recorded no device time for the next "
-          "kernel: its time is the gap between events")
-    return between, between
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    marks = []
+    for _ in range(reps):
+        flush.amax()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        marks.append((e0, e1))
+    torch.cuda.synchronize()
+    del flush
+    return sum(a.elapsed_time(b) for a, b in marks) / reps, between
 
 
 def bound(nbytes: float, ops: float):
@@ -371,7 +392,7 @@ def _check_k1(torch, s, ti, L, found):
     print(f"[phase 3] K1 decode Q={Q} L={L}"
           f"{'' if found is None else ' with found'}: bit-identical "
           f"({n_valid} values, {int(nb.sum())} blocks){untouched}, kernel "
-          f"{k_ms:.4f} ms ({e_ms:.4f} by events), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+          f"{k_ms:.4f} ms ({e_ms:.4f} back to back), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return (err, k_ms, p_ms, None, b_ms, b_by)
 
 
@@ -576,7 +597,7 @@ def phase_fused(torch, eng, uniform, baseline):
                          f"{n['span']}, rows {n['hit']})")
                 if base_parent is not None:
                     extra += (f"; baseline kernel {base_parent[0]:.4f} ms "
-                              f"({base_parent[1]:.4f} by events)")
+                              f"({base_parent[1]:.4f} back to back)")
             if entry == "width":
                 # what the width-P output replaces on the staged path
                 t_ms = time_ms(torch, lambda: cuda_fused.compact_small(
@@ -590,7 +611,7 @@ def phase_fused(torch, eng, uniform, baseline):
                   f"against the values still alive: anchors in range "
                   f"{n['span_run']}, rows a member can lie in "
                   f"{n['hit_run']}), kernel "
-                  f"{k_ms:.4f} ms ({e_ms:.4f} by events), plain {p_ms:.4f} "
+                  f"{k_ms:.4f} ms ({e_ms:.4f} back to back), plain {p_ms:.4f} "
                   f"ms, bound {b_ms:.4f} ms ({b_by}), "
                   f"{k_ms / b_ms:.2f}x{extra}")
             if L == L_MAIN:
@@ -695,7 +716,7 @@ def _check_sort(torch, x, run, label, reps=10):
                        Q * M * max(1.0, math.log2(M) - math.log2(g)))
     print(f"[phase 3] K4 sort_rows ({Q}, {M}) run={run} {label}: "
           f"bit-identical, hint holds, plan {plan}, kernel {k_ms:.4f} ms "
-          f"({e_ms:.4f} by events), "
+          f"({e_ms:.4f} back to back), "
           f"plain {p_ms:.4f} ms, torch.sort ({lib_form}) {l_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})")
     return (0, k_ms, p_ms, l_ms, b_ms, b_by)
@@ -727,7 +748,7 @@ def _check_compact(torch, vals, keep, label, reps=10):
     # operations: one scan step and one select per lane
     b_ms, b_by = bound(Q * M * (4 + 1 + 4), 2 * Q * M)
     print(f"[phase 3] K4 compact_rows ({Q}, {M}) {label}: bit-identical, "
-          f"kept lanes ascend, kernel {k_ms:.4f} ms ({e_ms:.4f} by events), "
+          f"kept lanes ascend, kernel {k_ms:.4f} ms ({e_ms:.4f} back to back), "
           f"plain {p_ms:.4f} ms, "
           f"torch.sort of the masked rows ({lib_form}) {l_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})")
@@ -1024,7 +1045,9 @@ def _check_k3(torch, lists, ncnt, kvt, label, baseline=None, timed=True):
     o_ms, _, _, o_need = _k3_bound(torch, lists, ncnt, kvt)
     del ordered
     check(b_ms <= k_ms, f"K3 {label}: the kernel beat its bound "
-          f"({k_ms} < {b_ms} ms)")
+          f"({k_ms} < {b_ms} ms, by {b_by}; back to back {e_ms} ms; "
+          f"{n_need} of {n_valid} valid values "
+          "needed)")
     extra = ""
     if baseline is not None:
         keep_base = int(W * W <= setops._BROADCAST_LIMIT)
@@ -1034,11 +1057,11 @@ def _check_k3(torch, lists, ncnt, kvt, label, baseline=None, timed=True):
               f"K3 {label}: the baseline's rows differ")
         t = kernel_ms(torch, lambda: baseline.intersect(
             torch, lists, ncnt, kvt, keep_base), 20)
-        extra = f"; baseline kernel {t[0]:.4f} ms ({t[1]:.4f} by events)"
+        extra = f"; baseline kernel {t[0]:.4f} ms ({t[1]:.4f} back to back)"
     print(f"[phase 3] K3 intersect {label} Q={Q} K={K} width={W}: "
           f"bit-identical ({int(pc.sum())} kept, {n_valid} valid values, "
           f"{n_need} needed shortest first, {o_need} in list order; windows "
-          f"{plan}); kernel {k_ms:.4f} ms ({e_ms:.4f} by events), plain "
+          f"{plan}); kernel {k_ms:.4f} ms ({e_ms:.4f} back to back), plain "
           f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; in list order "
           f"{o_ms:.4f} ms), {k_ms / b_ms:.2f}x{extra}")
     return err, k_ms, p_ms, b_ms, b_by, plan
@@ -1407,6 +1430,350 @@ def phase_engine_small(torch, device):
           f"{len(look)} lookups, AND follow-ups {st})")
 
 
+@contextlib.contextmanager
+def env(**kw):
+    """Set (a string) or unset (None) environment variables for the block.
+    A change of TPI_LINK_MBPS drops the engine's cached link probe, on
+    entry and on exit."""
+    from inverted_index_2_tpu_torch.models import query_engine as qe
+
+    old = {k: os.environ.get(k) for k in kw}
+
+    def put(vals):
+        for k, v in vals.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if "TPI_LINK_MBPS" in vals:
+            qe._LINK_MBPS = None
+
+    put(kw)
+    try:
+        yield
+    finally:
+        put(old)
+
+
+def device_view(torch, eng):
+    """An engine over eng's serving state without the retained tables:
+    the same snapshot tensors (nothing uploads again), so every read and
+    stream takes the device route."""
+    from inverted_index_2_tpu_torch import QueryEngine
+
+    bare = QueryEngine(eng.snap, L=eng.L, device=eng.device)
+    bare._publish(eng._state.replace(tables=None, delta_tables=None))
+    return bare
+
+
+def phase_checkpoint_small(torch, device):
+    """Phase 4, checkpoints and reads: an InvertedIndex (the port's) whose
+    terms hold bytes 0x80 and 0xFF and a posting 0xFFFFFFFF; its checkpoint
+    round-trips the tables and fingerprint; from_checkpoint against the
+    same index unchanged (no refresh), after an additive put (a delta) and
+    after a merge (a rebuild); in every state lookup, read_range and
+    prefix_search on the host route (retained tables) and the device route
+    (none) equal the index's host reads."""
+    import os
+
+    from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine, to_slice
+    from inverted_index_2_tpu_torch.models.checkpoint import (
+        _ARRAYS, load_checkpoint, load_fingerprint)
+    from inverted_index_2_tpu_torch.models.snapshot import (
+        _index_fingerprint, snapshot_tables)
+    from inverted_index_2_tpu_torch.ops import cuda_decode
+
+    rng = np.random.default_rng(17)
+    vocab = ([f"r{i:03d}".encode() for i in range(60)]
+             + [b"\x80a", b"\x80\xff", b"\xff", b"\xff\xff\x01", b"z\x80"])
+    prefixes = [b"r0", b"r05", b"r", b"\x80", b"\x80\xff", b"\xff",
+                b"\xff\xff", b"z", b"q", b"", b"r059", b"\x7f", b"\xff\x00"]
+    ranges = [(None, None), (b"r010", b"r040"), (b"\x80", None),
+              (None, b"r003"), (b"s", b"t"), (b"\xff", b"\xff\xff\xff")]
+    with tempfile.TemporaryDirectory() as d:
+        ii = InvertedIndex(os.path.join(d, "idx"))
+        for v in range(1, 400):
+            ii.put([vocab[j] for j in rng.choice(len(vocab), 3,
+                                                 replace=False)], v)
+        ii.put([b"r001", b"\xff"], 0xFFFFFFFF)
+        while ii.merge(1, 100, 2) > 0:
+            pass
+        path = os.path.join(d, "snap.ckpt")
+
+        def same_rows(got, want):
+            return len(got) == len(want) and all(
+                a[0] == b[0] and np.array_equal(a[1], b[1])
+                for a, b in zip(got, want))
+
+        def reads(eng, stage):
+            bare = device_view(torch, eng)
+            k1 = cuda_decode.decode_postings.launches
+            host = {tv.term: tv.values for tv in to_slice(ii.read(None, None))}
+            terms = sorted(host) + [b"missing", b"\x80"]
+            for t, got in zip(terms, eng.lookup(terms)):
+                check((got is None and t not in host) or (
+                    got is not None and np.array_equal(got, host[t])),
+                    f"{stage}: lookup {t!r}")
+            want_p = ii.prefix_search(prefixes)
+            for route, e in (("host", eng), ("device", bare)):
+                for mn, mx in ranges:
+                    # read() walks the shards in turn: sort by term
+                    want = sorted(((tv.term, tv.values)
+                                   for tv in to_slice(ii.read(mn, mx))),
+                                  key=lambda tv: tv[0])
+                    check(same_rows(list(e.read_range(mn, mx)), want),
+                          f"{stage}: {route} read_range({mn!r}, {mx!r})")
+                got = e.prefix_search(prefixes)
+                check(set(got) == set(want_p) and all(
+                    np.array_equal(got[p], want_p[p]) for p in got),
+                    f"{stage}: {route} prefix_search")
+            check(device == "cpu" or cuda_decode.decode_postings.launches > k1,
+                  f"{stage}: the device reads never launched K1")
+
+        eng = QueryEngine.from_index(ii, L=128, device=device)
+        eng.save_checkpoint(ii, path)
+        t, meta = load_checkpoint(path)
+        fresh = snapshot_tables(ii)
+        check(all(np.array_equal(getattr(t, n), getattr(fresh, n))
+                  for n in _ARRAYS)
+              and load_fingerprint(meta) == _index_fingerprint(ii, False),
+              "the checkpoint did not round-trip the tables")
+        reads(eng, "from_index")
+        stages = []
+        for stage in ("unchanged index", "additive put", "merged index"):
+            if stage == "additive put":
+                ii.put([b"r002", b"\x80new", b"\xff"], 5000)
+            elif stage == "merged index":
+                while ii.merge(1, 1000, 2) > 0:
+                    pass
+            w = QueryEngine.from_checkpoint(path, index=ii, L=128,
+                                            device=device)
+            w.device_wait()
+            check(w.device_ready() and w.refresh(ii) is False
+                  and w._fingerprint == _index_fingerprint(ii, False),
+                  f"checkpoint, {stage}: not reconciled with the index")
+            check((w.delta is not None) == (stage == "additive put"),
+                  f"checkpoint, {stage}: delta tier {w.delta is not None}")
+            reads(w, f"checkpoint, {stage}")
+            stages.append(f"{stage}: delta {w.delta is not None}")
+    print(f"[phase 4] checkpoints: tables and fingerprint round-trip; "
+          f"from_checkpoint ({'; '.join(stages)}); lookup, read_range and "
+          f"prefix_search on both routes equal the index's host reads")
+
+
+def prefix_oracle(terms_mat, term_list, p: bytes):
+    """The sorted union of the values of every corpus term (12 bytes, rows
+    of terms_mat in order) that starts with p; None when no term does."""
+    if len(p) > 12:
+        return None
+    head = terms_mat[:, :len(p)]
+    pref = np.frombuffer(p, dtype=np.uint8)
+    rows = np.nonzero((head == pref).all(axis=1))[0]
+    if not len(rows):
+        return None
+    # a sort and a compare of neighbours: numpy's unique hashes from 2.3 on,
+    # many times slower on these unions
+    v = np.sort(np.concatenate([term_list(i) for i in rows]))
+    return v[np.concatenate([[True], v[1:] != v[:-1]])]
+
+
+def phase_host(torch, eng, terms_mat, main_list, term_bytes, streams, qps,
+               drive):
+    """Phase 5, the host route and the rest of the engine's surface at full
+    size: the router's host route against the device streams of phase 5,
+    the routing of auto, the hybrid AND stream, range and prefix reads on
+    the device, a warm checkpoint start, warmup() and stats()."""
+    import gc
+
+    from inverted_index_2_tpu_torch import QueryEngine
+    from inverted_index_2_tpu_torch.codec import native
+    from inverted_index_2_tpu_torch.models import query_engine as qe
+    from inverted_index_2_tpu_torch.models.checkpoint import save_tables
+
+    uniform, zipf, first_terms = streams
+    t_phase = time.perf_counter()
+    calls = {"serve": 0, "lookup": 0}
+    serve0, tier0 = eng._host_serve_columnar, eng._host_tier_columnar
+
+    def serve(*a, **k):
+        calls["serve"] += 1
+        return serve0(*a, **k)
+
+    def tier(*a, **k):
+        calls["lookup"] += 1
+        return tier0(*a, **k)
+
+    eng._host_serve_columnar, eng._host_tier_columnar = serve, tier
+    host_qps = {}
+    with env(TPI_HOST_BOOL="all"):
+        for path, stream, op, lookup in (
+                ("host and uniform", uniform, "and", False),
+                ("host and zipf", zipf, "and", False),
+                ("host or uniform", uniform[:2], "or", False),
+                ("host lookup_staged", first_terms, "or", True)):
+            _, host_qps[path] = drive(path, lambda: run_stream(
+                eng, main_list, term_bytes, stream, path, op=op,
+                lookup=lookup, stream_stats=False))
+    del eng._host_serve_columnar, eng._host_tier_columnar
+    check(calls["serve"] > 0 and calls["lookup"] > 0,
+          f"the host serve did not run: {calls}")
+    print(f"[phase 5] host route, native codec {native.available()}: QPS "
+          + ", ".join(f"{p[5:]} {q:.1f} (device {qps[p[5:]]:.1f})"
+                      for p, q in host_qps.items())
+          + f"; host serve calls {calls}")
+
+    # routing: auto's pick per op against the port's thresholds
+    with env(TPI_HOST_BOOL=None, TPI_LINK_MBPS=None):
+        probe = qe._link_mbps(eng.device)
+        busy = eng._host_busy()
+        picks = {"and staged": eng._host_boolean_route("and", staged=True),
+                 "and one-shot": eng._host_boolean_route("and"),
+                 "or staged": eng._host_boolean_route("or", staged=True),
+                 "or one-shot": eng._host_boolean_route("or")}
+    and_host = probe < eng._HOST_ROUTE_LINK_MBPS
+    or_host = probe < eng._HOST_ROUTE_OR_LINK_MBPS
+    check(picks == {"and staged": and_host and not busy,
+                    "and one-shot": and_host,
+                    "or staged": or_host and not busy,
+                    "or one-shot": or_host},
+          f"auto's picks {picks} do not follow the thresholds")
+    print(f"[phase 5] routing: link probe {probe:.1f} MiB/s (AND threshold "
+          f"{eng._HOST_ROUTE_LINK_MBPS}, OR threshold "
+          f"{eng._HOST_ROUTE_OR_LINK_MBPS}), host busy {busy}; auto takes "
+          + ", ".join(f"{k} {'host' if v else 'device'}"
+                      for k, v in picks.items()))
+
+    # the hybrid AND stream: both sides serve, the result is the device's
+    ub = [[[term_bytes[i] for i in q] for q in b] for b in uniform]
+    want = eng.boolean_staged(ub, "and", columnar=True, depth=4)
+    with env(TPI_HOST_BOOL=None, TPI_HYBRID="1",
+             TPI_LINK_MBPS=str(eng._HOST_ROUTE_LINK_MBPS / 2)):
+        check(eng._hybrid_staged("and"), "the hybrid stream is not on")
+        t0 = time.perf_counter()
+        got = drive("hybrid and uniform", lambda: eng.boolean_staged(
+            ub, "and", columnar=True, depth=4))
+        dt = time.perf_counter() - t0
+    hb = eng.last_stream_stats["host_batches"]
+    db = eng.last_stream_stats["device_batches"]
+    check(hb > 0 and db > 0, f"hybrid: the host served {hb} and the device "
+          f"{db} of {len(ub)} batches")
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(got, want)),
+          "hybrid: the result differs from the device-only stream")
+    print(f"[phase 5] hybrid AND uniform: of {len(ub)} batches the host "
+          f"served {hb} and the device {db} (a stolen batch counts on both), "
+          f"{BATCH * len(ub) / dt:.1f} QPS in one pass; bit-identical to the "
+          "device-only stream")
+    del got, want
+
+    # range and prefix reads on the device: an engine over the same
+    # snapshot with no tables, against the host route and an oracle
+    bare = device_view(torch, eng)
+    rng = np.random.default_rng(41)
+    n = len(terms_mat)
+    # a 1-byte prefix of this corpus holds about 7,700 terms (7.7M values)
+    # and a 2-byte one about 300, so few of them: the time of the reads is
+    # the union of what they hold
+    pick = rng.choice(n, size=200, replace=False)
+    prefixes = ([term_bytes[i][:1] for i in pick[:1]]
+                + [term_bytes[i][:2] for i in pick[1:17]]
+                + [term_bytes[i][:3] for i in pick[17:194]]
+                + [term_bytes[i] for i in pick[194:200]]
+                + [term_bytes[i][:5] for i in rng.choice(n, 40)]
+                + [b"0", b"A", b"\x7f", b"\x80", b"\xff", b"a\x80", b"b\xff",
+                   b"zz\xff", b"\xff\xff", b"m\x80\x80", b"z" * 13,
+                   b"q\x00", b"\x80\xff", b"yy\x7f", b"{", b"`"])
+    t0 = time.perf_counter()
+    pd = drive("device prefix", lambda: bare.prefix_search(prefixes))
+    t_dev_p = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ph = eng.prefix_search(prefixes)
+    t_host_p = time.perf_counter() - t0
+    check(set(pd) == set(ph), "prefix_search: the routes match different "
+          "prefixes")
+    for p in prefixes:
+        w = prefix_oracle(terms_mat, main_list, p)
+        check((w is None and p not in pd) or (
+            w is not None and np.array_equal(pd[p], w)
+            and np.array_equal(ph[p], w)),
+            f"prefix_search {p!r} differs from the oracle")
+    nvals = sum(len(v) for v in pd.values())
+    lo = int(rng.integers(0, n - 4 * 4096))
+    windows = [(term_bytes[lo], term_bytes[lo + 3 * 4096 + 100]),
+               (term_bytes[n - 5000], None)]
+    t_dev_r = t_host_r = 0.0
+    n_rows = 0
+    for mn, mx in windows:
+        t0 = time.perf_counter()
+        rd = drive("device range", lambda: list(bare.read_range(mn, mx)))
+        t_dev_r += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rh = list(eng.read_range(mn, mx))
+        t_host_r += time.perf_counter() - t0
+        first = term_bytes.index(mn)
+        last = n - 1 if mx is None else term_bytes.index(mx)
+        check(len(rd) == len(rh) == last - first + 1,
+              f"read_range({mn!r}, {mx!r}): {len(rd)} and {len(rh)} terms")
+        for j, ((td, vd), (th, vh)) in enumerate(zip(rd, rh)):
+            check(td == th == term_bytes[first + j]
+                  and np.array_equal(vd, vh)
+                  and np.array_equal(vd, main_list(first + j)),
+                  f"read_range: term {first + j} differs")
+        n_rows += len(rd)
+    print(f"[phase 5] prefix_search: {len(prefixes)} prefixes, {len(pd)} "
+          f"matched, {nvals} values; device {t_dev_p:.4f} s, host tables "
+          f"{t_host_p:.4f} s; read_range: {n_rows} terms in 2 windows "
+          f"(chunks of {eng._RANGE_CHUNK}); device {t_dev_r:.4f} s, host "
+          f"tables {t_host_r:.4f} s; both routes equal the oracle")
+    del bare, pd, ph, rd, rh
+
+    # a warm checkpoint start of the phase-5 tables
+    lk_terms = [term_bytes[i] for i in rng.choice(n, size=BATCH,
+                                                  replace=False)]
+    want_lk = eng.lookup(lk_terms)
+    want_and = eng.boolean_staged(ub[:1], "and", columnar=True)[0]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "main.ckpt")
+        t0 = time.perf_counter()
+        save_tables(eng.tables, path)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = QueryEngine.from_checkpoint(path, L=L_MAIN, device=eng.device)
+        t_load = time.perf_counter() - t0
+        lk = warm.lookup(lk_terms)
+        t_first = time.perf_counter() - t0
+        in_window = not warm.device_ready()
+        first_and = warm.boolean_staged(ub[:1], "and", columnar=True)[0]
+        warm.device_wait()
+        t_ready = time.perf_counter() - t0
+        lk2 = warm.lookup(lk_terms)
+        second_and = warm.boolean_staged(ub[:1], "and", columnar=True)[0]
+        os.remove(path)
+    for got in (lk, lk2):
+        check(all(np.array_equal(a, b) for a, b in zip(got, want_lk)),
+              "warm start: a lookup differs from the phase-5 engine")
+    for got in (first_and, second_and):
+        check(all(np.array_equal(a, b) for a, b in zip(got, want_and)),
+              "warm start: the AND batch differs from the phase-5 engine")
+    print(f"[phase 5] warm start: checkpoint saved in {t_save:.4f} s; "
+          f"from_checkpoint returned in {t_load:.4f} s, first answer "
+          f"({BATCH} lookups) at {t_first:.4f} s, "
+          + ("inside the upload window" if in_window else
+             "after the upload window had closed")
+          + f"; upload {warm.upload_seconds:.4f} s on a side stream, device "
+          f"ready at {t_ready:.4f} s; lookups and an AND batch equal the "
+          "phase-5 engine before and after the swap")
+    del warm, lk, lk2, first_and, second_and
+    gc.collect()
+
+    t0 = time.perf_counter()
+    nw = eng.warmup()
+    print(f"[phase 5] warmup(): {nw} paths in {time.perf_counter() - t0:.4f} "
+          f"s; stats() {eng.stats()}")
+    print(f"[phase 5] host route phase took {time.perf_counter() - t_phase:.4f}"
+          " s")
+
+
 def zipf_stream(rng, n_terms, n_batches):
     """bench.py's Zipf mix: a pool of 4096 queries of 2-8 terms drawn with
     weight 1/rank."""
@@ -1424,11 +1791,13 @@ def uniform_stream(rng, n_terms, n_batches):
 
 
 def run_stream(eng, term_list, term_bytes, stream, name, op="and",
-               prefix_p=0, depth=4, lookup=False, reps=3):
+               prefix_p=0, depth=4, lookup=False, reps=3, stream_stats=True):
     """Serve one stream `reps` times after a warm pass; check a sample of
     the last pass against the oracle (term_list(i): term i's postings).
     stream: batches of queries (term index arrays), or of term indexes with
-    lookup=True. Returns the byte batches and the median QPS."""
+    lookup=True. An AND stream's counts (last_stream_stats) are checked
+    unless stream_stats is False (the host route keeps none). Returns the
+    byte batches and the median QPS."""
     if lookup:
         batches = [[term_bytes[i] for i in b] for b in stream]
 
@@ -1448,7 +1817,7 @@ def run_stream(eng, term_list, term_bytes, stream, name, op="and",
         out = serve(batches)
         qps.append(nq / (time.perf_counter() - t0))
     stats = ""
-    if op == "and" and not prefix_p and not lookup:
+    if op == "and" and not prefix_p and not lookup and stream_stats:
         st = dict(eng.last_stream_stats)
         check(st["queries"] == nq, f"{name}: served {st['queries']} of {nq}")
         stats = f"; follow-ups {st}"
@@ -1647,6 +2016,9 @@ def main(argv=None) -> int:
 
     import torch
 
+    # the phases below measure the device routes, as they did before the
+    # router existed; phase_host sets its own (env)
+    os.environ["TPI_HOST_BOOL"] = "0"
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1696,6 +2068,7 @@ def main(argv=None) -> int:
     del cap
     phase_engine_small(torch, "cuda")
     phase_refresh(torch, "cuda")
+    phase_checkpoint_small(torch, "cuda")
 
     # phase 5: the main paths; each path's kernel launches are counted from
     # 0 just before it and read just after
@@ -1755,8 +2128,11 @@ def main(argv=None) -> int:
         eng, main_list, term_bytes, uniform, f"OR pages P={PAGE_P}",
         op="or", prefix_p=PAGE_P, depth=4))
     first_terms = [[q[0] for q in b] for b in uniform[:4]]
+    # with retained tables lookup_staged takes the host route: the device
+    # stream runs on a view of the same snapshot without them
+    dev_eng = device_view(torch, eng)
     lkb, qps_lk = drive("lookup_staged", lambda: run_stream(
-        eng, main_list, term_bytes, first_terms, "lookup_staged",
+        dev_eng, main_list, term_bytes, first_terms, "lookup_staged",
         lookup=True, depth=3))
     print(f"[phase 5] median QPS: AND uniform {qps_u:.1f}, AND zipf "
           f"{qps_z:.1f}, OR uniform {qps_or:.1f}, OR zipf {qps_orz:.1f}, "
@@ -1772,9 +2148,14 @@ def main(argv=None) -> int:
         orzb, "or", columnar=True, depth=4), "OR zipf")
     profile_stream(torch, lambda: eng.boolean_staged(
         pgb, "or", columnar=True, depth=4, prefix_p=PAGE_P), "OR pages")
-    profile_stream(torch, lambda: eng.lookup_staged(
+    profile_stream(torch, lambda: dev_eng.lookup_staged(
         lkb, columnar=True, depth=3), "lookup_staged")
+    del dev_eng
     print(f"[phase 5] main tier paths took {time.perf_counter() - t_main:.4f} s")
+    phase_host(torch, eng, terms_mat, main_list, term_bytes,
+               (uniform, zipf, first_terms),
+               {"and uniform": qps_u, "and zipf": qps_z,
+                "or uniform": qps_or, "lookup_staged": qps_lk}, drive)
 
     # the delta tier is made after the main tier's paths, so those run in
     # the same process state as before it existed; K3's phase-3 check
@@ -1808,10 +2189,17 @@ def main(argv=None) -> int:
             ("dual and zipf", dual + ("intersect_many",)),
             ("dual or pages", dual + ("sort_rows.runs",)),
             ("dual or", dual + ("sort_rows.runs",)),
-            ("dual lookup", ("decode_postings",))):
+            ("dual lookup", ("decode_postings",)),
+            ("hybrid and uniform", ("fused_and", "fused_and.width")),
+            ("device prefix", ("decode_postings",)),
+            ("device range", ("decode_postings",))):
         for name in names:
             check(per_path[path][name] > 0,
                   f"the {path} path never launched {name}")
+    for path in ("host and uniform", "host and zipf", "host or uniform",
+                 "host lookup_staged"):
+        check(not any(per_path[path].values()),
+              f"the {path} path launched kernels: {per_path[path]}")
     for path, got in per_path.items():
         # every call site states its runs: nothing takes the whole network
         check(got["sort_rows.general"] == 0,
@@ -1851,6 +2239,8 @@ def main(argv=None) -> int:
     rows = []
     for name, (source, replaces, counted) in meta.items():
         err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]
+        check(b_ms <= ms, f"{name}: its time {ms} ms beat its bound "
+              f"{b_ms} ms ({b_by})")
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[counted],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -9,9 +9,14 @@ wrote; every merge runs on the host. The shared C++ codec loads from the
 repository's top-level native/ directory.
 
 The device half serves frozen snapshots as torch tensors: batched exact
-lookup, AND, OR, pagination and staged lookup, with the posting-block
-decode (K1), the fused decode+AND (K2) and the row sort (K4) as CUDA C++
-kernels for Hopper (`csrc/`).
+lookup, AND, OR, pagination, staged lookup, range reads and prefix search,
+with the posting-block decode (K1), the fused decode+AND (K2), the sorted-set
+AND of the delta window (K3) and the row sort (K4) as CUDA C++ kernels for
+Hopper (`csrc/`). refresh() keeps an engine current while the index takes
+writes (a delta tier beside the main one). With the compact host tables
+retained, a host route serves the same results with no device at all, and a
+router picks between the two per op; checkpoints of those tables give a
+warm start that serves on the host while the arena uploads.
 
 Module names follow the JAX package's, so each counterpart is easy to find.
 Nothing here imports `jax` or `inverted_index_2_tpu`.
@@ -19,13 +24,20 @@ Nothing here imports `jax` or `inverted_index_2_tpu`.
 Public surface:
     InvertedIndex(basedir) .put/.read/.prefix_search/.put_removed/.merge
     QueryEngine.from_index(index, L, device="cuda")
+    QueryEngine.from_checkpoint(path, index=None, L, device="cuda")
     QueryEngine(snapshot, L, tables=..., device="cuda")
         .lookup(terms, filter_removed)
         .lookup_staged(batches, columnar=..., prefix_p=...)
         .boolean(queries, "and" | "or", filter_removed)
         .boolean_staged(batches, "and" | "or", columnar=..., prefix_p=...)
-    build_host_tables, snapshot_tables, upload_tables, IndexSnapshot,
-    HostTables (models/snapshot.py)
+        .lookup_host / .boolean_host (the host route)
+        .read_range(min_term, max_term), .prefix_search(prefixes)
+        .refresh(index), .warmup(), .stats(), .lookup_device(qkeys)
+        .save_checkpoint(index, path), .device_ready(), .device_wait()
+    build_host_tables, snapshot_tables, snapshot_index, upload_tables,
+    build_snapshot_arrays, IndexSnapshot, HostTables (models/snapshot.py)
+    save_checkpoint, save_tables, load_checkpoint (models/checkpoint.py)
+    Bitmask (codec/bitmask.py)
 """
 
 from .evictable_pool import Pool
@@ -39,11 +51,15 @@ from .iterators import (
     merge_term_values,
     to_slice,
 )
+from .codec.bitmask import Bitmask
+from .models.checkpoint import load_checkpoint, save_checkpoint, save_tables
 from .models.query_engine import QueryEngine
 from .models.snapshot import (
     HostTables,
     IndexSnapshot,
     build_host_tables,
+    build_snapshot_arrays,
+    snapshot_index,
     snapshot_tables,
     upload_tables,
 )
@@ -69,5 +85,11 @@ __all__ = [
     "IndexSnapshot",
     "build_host_tables",
     "snapshot_tables",
+    "snapshot_index",
     "upload_tables",
+    "build_snapshot_arrays",
+    "save_checkpoint",
+    "save_tables",
+    "load_checkpoint",
+    "Bitmask",
 ]

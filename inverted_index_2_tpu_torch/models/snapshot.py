@@ -166,40 +166,96 @@ def arena_stride(t: HostTables) -> int:
     return -(-stride // STRIDE_ALIGN) * STRIDE_ALIGN
 
 
-def upload_tables(t: HostTables, *, device="cuda") -> IndexSnapshot:
+def _empty_snapshot(width: int, device) -> IndexSnapshot:
+    """A snapshot of no terms on `device`. Also the placeholder of a warm
+    checkpoint start: the engine's device check passes, and nothing serves
+    from it, because every entry point takes the host route until the
+    uploaded snapshot is published (ServingState.device_ready)."""
+    device = torch.device(device)
+    return IndexSnapshot(
+        keys=torch.zeros((0, width + 1), dtype=torch.int32, device=device),
+        blocks=torch.zeros((1, 4), dtype=torch.int32, device=device),
+        term_block_start=torch.zeros(1, dtype=torch.int32, device=device),
+        counts=torch.zeros(0, dtype=torch.int32, device=device),
+        removed=torch.zeros(0, dtype=torch.int32, device=device),
+        width=width,
+        hash_slots=torch.full((8,), -1, dtype=torch.int32, device=device),
+        host_counts=np.zeros(0, dtype=np.int32),
+    )
+
+
+def upload_tables(t: HostTables, *, device="cuda",
+                  staging: Optional[list] = None) -> IndexSnapshot:
     """Materialize host tables on `device`: ship the compressed words and
     block offsets, then expand the (B, stride) block arena with one row
-    gather on the device (row i = words[flat[i] : flat[i] + stride])."""
+    gather on the device (row i = words[flat[i] : flat[i] + stride]).
+
+    With `staging` (a list, CUDA only) every host array is first copied
+    into pinned memory, appended to the list, and shipped with a
+    non_blocking copy on the current stream: the caller keeps the list
+    until that stream has passed the copies (upload_on_side_stream)."""
     device = torch.device(device)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        if staging is None:
+            return to_device(a, device)
+        host = to_device(a, "cpu").pin_memory()
+        staging.append(host)
+        return host.to(device, non_blocking=True)
+
     if t.n_terms == 0:
-        w = t.width or 1
-        return IndexSnapshot(
-            keys=torch.zeros((0, w + 1), dtype=torch.int32, device=device),
-            blocks=torch.zeros((1, 4), dtype=torch.int32, device=device),
-            term_block_start=torch.zeros(1, dtype=torch.int32, device=device),
-            counts=torch.zeros(0, dtype=torch.int32, device=device),
-            removed=to_device(t.removed, device),
-            width=w,
-            hash_slots=torch.full((8,), -1, dtype=torch.int32, device=device),
-            host_counts=np.zeros(0, dtype=np.int32),
-        )
+        snap = _empty_snapshot(t.width or 1, device)
+        snap.removed = put(t.removed)
+        return snap
     stride = arena_stride(t)
-    wpad = to_device(
-        np.concatenate([t.words, np.zeros(stride, dtype=np.uint32)]), device)
-    flat = torch.from_numpy(t.flat.astype(np.int64)).to(device)
+    wpad = put(np.concatenate([t.words, np.zeros(stride, dtype=np.uint32)]))
+    flat = put(t.flat.astype(np.int64))
     arena = wpad.unfold(0, stride, 1)[flat]
     return IndexSnapshot(
-        keys=to_device(t.keys, device),
+        keys=put(t.keys),
         blocks=arena,
-        term_block_start=to_device(t.tbs, device),
-        counts=to_device(t.counts, device),
-        removed=to_device(t.removed, device),
+        term_block_start=put(t.tbs),
+        counts=put(t.counts),
+        removed=put(t.removed),
         width=t.width,
-        hash_slots=to_device(t.slots, device),
+        hash_slots=put(t.slots),
         max_probes=t.max_probes,
         max_count=t.max_count,
         host_counts=t.counts,
     )
+
+
+def upload_on_side_stream(t: HostTables, device,
+                          serve_stream) -> IndexSnapshot:
+    """upload_tables on a CUDA stream of its own, from pinned host memory
+    with non_blocking copies, so serving on `serve_stream` goes on while
+    the arena lands. Before it returns, `serve_stream` waits on the side
+    stream's event (work queued there later sees the whole snapshot), every
+    tensor is recorded on `serve_stream` (the allocator keeps its memory
+    until that stream's uses end), and the host waits for the event, so the
+    pinned staging buffers outlive their copies."""
+    side = torch.cuda.Stream(device)
+    staging: list = []
+    with torch.cuda.stream(side):
+        snap = upload_tables(t, device=device, staging=staging)
+        done = torch.cuda.Event()
+        done.record(side)
+    serve_stream.wait_event(done)
+    for a in (snap.keys, snap.blocks, snap.term_block_start, snap.counts,
+              snap.removed, snap.hash_slots):
+        a.record_stream(serve_stream)
+    done.synchronize()
+    staging.clear()
+    return snap
+
+
+def build_snapshot_arrays(blob, offsets, values, voffs, removed=None,
+                          width=None, *, device="cuda") -> IndexSnapshot:
+    """Merged (blob, offsets, values, voffs) arrays -> a snapshot on
+    `device` (build_host_tables, then upload_tables)."""
+    return upload_tables(
+        build_host_tables(blob, offsets, values, voffs, removed, width),
+        device=device)
 
 
 def _purge_merged(merged, removed: np.ndarray):
@@ -326,3 +382,13 @@ def snapshot_tables(index, apply_removed: bool = False,
         removed = np.zeros(0, np.uint32)
     blob, offsets, values, voffs = merged
     return build_host_tables(blob, offsets, values, voffs, removed, width)
+
+
+def snapshot_index(index, apply_removed: bool = False,
+                   width: Optional[int] = None, *,
+                   device="cuda") -> IndexSnapshot:
+    """Freeze an InvertedIndex into a snapshot on `device`
+    (snapshot_tables, then upload_tables)."""
+    return upload_tables(
+        snapshot_tables(index, apply_removed=apply_removed, width=width),
+        device=device)

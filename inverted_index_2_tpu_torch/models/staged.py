@@ -11,9 +11,14 @@ Three streams:
     (_staged_concat_stream), whose row and compaction sorts run through K4;
   * every op while a delta tier is live: the dual stream
     (_staged_dual_stream), the padded dual step with its AND through K3.
+With retained host tables, lookup_staged serves on the host, and
+boolean_staged does when the router picks the host route; the AND stream
+can also run hybrid, the host serving batches from the tail while the
+device takes them from the head (TPI_HYBRID=1).
 """
 from __future__ import annotations
 
+import threading
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -22,6 +27,7 @@ import torch
 
 from ..ops.setops import filter_removed as _filter_removed
 from ..utils.u32 import to_numpy_u32
+from .host_serve import _page_columnar
 from .steps import (
     _RESERVE_BUDGET,
     _batch_as_lists,
@@ -86,8 +92,16 @@ class StagedStreamsMixin:
         stream on the device (exact at any posting length: classes size by
         true counts), and each batch returns what boolean_staged returns
         (rows, a columnar pair, or the pagination triple with prefix_p).
-        Misses give count-0 results instead of lookup()'s None."""
-        st = self._state
+        Misses give count-0 results instead of lookup()'s None.
+
+        With retained tables covering the live tiers (host_ready) every
+        batch serves on the host instead (_host_lookup_stream): a
+        full-result lookup is pure output, so not crossing the link at all
+        is the fastest it can go."""
+        st = self._serving_state()
+        if st.host_ready():
+            return self._host_lookup_stream(st, batches, filter_removed,
+                                            columnar, prefix_p)
         return self.boolean_staged(
             [[[t] for t in b] for b in batches], "or", filter_removed, depth,
             columnar, prefix_p, _st=st)
@@ -111,13 +125,23 @@ class StagedStreamsMixin:
         pagination: each batch returns (values, voffs, counts) with only
         the first min(count, prefix_p) results per query and the true
         counts. Afterwards `last_stream_stats` counts the AND stream's
-        queries, the rows served after dedup, and each follow-up class."""
+        queries, the rows served after dedup, each follow-up class, and the
+        batches each side served (a hybrid stream's host thread may serve a
+        batch the device has served too).
+
+        When the router picks the host route (_host_boolean_route) every
+        batch serves on the host; with TPI_HYBRID=1 (_hybrid_staged) the
+        AND stream's batches are shared between the device and a host
+        thread."""
         if op not in ("and", "or"):
             raise ValueError(f"op {op!r}: want 'and' or 'or'")
         if prefix_p and not columnar:
             raise ValueError("prefix_p requires columnar=True")
         batches = list(batches)
-        st = _st if _st is not None else self._state
+        st = _st if _st is not None else self._serving_state()
+        if self._host_boolean_route(op, prefix_p, staged=True, st=st):
+            return [self._host_batch(b, op, filter_removed, columnar,
+                                     prefix_p, st) for b in batches]
         removed = st.removed if filter_removed else None
         if st.delta is not None:
             return self._staged_dual_stream(st, batches, op, removed, depth,
@@ -150,19 +174,66 @@ class StagedStreamsMixin:
                 else:
                     overs.append(((bi, int(i)), qk[i], int(kv[i])))
 
+        # hybrid work-stealing: the device claims batches from the head and
+        # a host thread (the native serve releases the GIL) from the tail
+        host_res: Dict[int, tuple] = {}
+        ends = [0, len(batches) - 1]
+        ends_lock = threading.Lock()
+
+        def claim(device_side: bool):
+            with ends_lock:
+                if ends[0] > ends[1]:
+                    return None
+                if device_side:
+                    ends[0] += 1
+                    return ends[0] - 1
+                ends[1] -= 1
+                return ends[1] + 1
+
+        worker, host_err = None, []
+        if len(batches) > 1 and self._hybrid_staged(op, st=st):
+            if filter_removed:
+                st.removed_host()  # the host tombstones, made on this thread
+
+            def host_worker():
+                try:
+                    while (hbi := claim(False)) is not None:
+                        host_res[hbi] = self._boolean_host_columnar(
+                            batches[hbi], op, filter_removed, st=st)
+                    # the tail is spent: serve again, newest first, the
+                    # batches the device claimed and has not harvested;
+                    # assembly takes the host's copy of a batch served twice
+                    for hbi in range(len(batches) - 1, -1, -1):
+                        if fetched[hbi] is None and hbi not in host_res:
+                            host_res[hbi] = self._boolean_host_columnar(
+                                batches[hbi], op, filter_removed, st=st)
+                except BaseException as e:  # raised after the join
+                    host_err.append(e)
+
+            worker = threading.Thread(target=host_worker, daemon=True,
+                                      name="tpi-hybrid-host")
+            worker.start()
+
         pend = deque()
-        for bi, b in enumerate(batches):
-            nq, qk, kv = self._batch_pack(st, b)
-            if nq == 0:
-                fetched[bi] = (0, None, 0, None)
-                continue
-            nu, qk, kv, inv = self._dedup_batch(nq, qk, kv)
-            devs = self._fused_run_staged(st, qk, kv, removed)
-            pend.append((bi, nq, inv, nu, qk, kv, _start_host_copy(devs)))
-            if len(pend) > depth:
+        try:
+            while (bi := claim(True)) is not None:
+                nq, qk, kv = self._batch_pack(st, batches[bi])
+                if nq == 0:
+                    fetched[bi] = (0, None, 0, None)
+                    continue
+                nu, qk, kv, inv = self._dedup_batch(nq, qk, kv)
+                devs = self._fused_run_staged(st, qk, kv, removed)
+                pend.append((bi, nq, inv, nu, qk, kv,
+                             _start_host_copy(devs)))
+                if len(pend) > depth:
+                    harvest(pend.popleft())
+            while pend:
                 harvest(pend.popleft())
-        while pend:
-            harvest(pend.popleft())
+        finally:
+            if worker is not None:
+                worker.join()
+        if host_err:
+            raise host_err[0]
 
         overrides: Dict[int, Dict[int, np.ndarray]] = {}
 
@@ -170,16 +241,44 @@ class StagedStreamsMixin:
             overrides.setdefault(pos[0], {})[pos[1]] = v
 
         self._fused_followups(st, setter, wide, longs, overs, removed)
-        served = [f for f in fetched if f[0]]
+        harvested = [bi for bi, f in enumerate(fetched)
+                     if f is not None and f[0]]
+        served = [fetched[bi] for bi in harvested if bi not in host_res]
         self.last_stream_stats = {
-            "queries": sum(f[0] for f in served),
+            "queries": (sum(f[0] for f in served)
+                        + sum(len(r[1]) - 1 for r in host_res.values())),
             "served_rows": sum(f[2] for f in served),
             "small_p_overflow": len(wide),
             "ladder_reserve": len(longs),
             "concat": len(overs),
+            # a batch the host stole back may count on both sides
+            "device_batches": len(harvested),
+            "host_batches": len(host_res),
         }
-        return [self._assemble(fetched[bi], overrides.get(bi, {}), P,
-                               columnar) for bi in range(len(batches))]
+        return [self._host_result(host_res[bi], columnar) if bi in host_res
+                else self._assemble(fetched[bi], overrides.get(bi, {}), P,
+                                    columnar)
+                for bi in range(len(batches))]
+
+    def _host_batch(self, b, op, filter_removed, columnar, P, st):
+        """One batch of boolean_staged on the host route. A page (prefix_p)
+        reaches here only in a warm start's window: the full results are
+        cut to the pagination triple."""
+        if not columnar:
+            return self.boolean_host(_batch_as_lists(b), op, filter_removed,
+                                     _st=st)
+        vals, voffs = self._boolean_host_columnar(b, op, filter_removed,
+                                                  st=st)
+        return _page_columnar(vals, voffs, P) if P else (vals, voffs)
+
+    @staticmethod
+    def _host_result(res, columnar: bool):
+        """A hybrid stream's host-served batch in the stream's form."""
+        vals, voffs = res
+        if columnar:
+            return vals, voffs
+        return [vals[voffs[i]: voffs[i + 1]].copy()
+                for i in range(len(voffs) - 1)]
 
     def _empty_index_batch(self, b, op, filter_removed, columnar, prefix_p):
         """One batch over an empty index: every result is empty."""
@@ -290,7 +389,10 @@ class StagedStreamsMixin:
         nqs = sum(f[0] for f in fetched)
         self.last_stream_stats = {"queries": nqs, "served_rows": nqs,
                                   "small_p_overflow": 0,
-                                  "ladder_reserve": len(longs), "concat": 0}
+                                  "ladder_reserve": len(longs), "concat": 0,
+                                  "device_batches": sum(
+                                      1 for f in fetched if f[0]),
+                                  "host_batches": 0}
         results = []
         for bi in range(len(batches)):
             nq, out_h, oc_h = fetched[bi]

@@ -13,7 +13,7 @@ from ..ops.concat_bool import boolean_concat_step, resolve_step
 from ..ops.cuda_bool import intersect_many
 from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import fused_and, reorder_smallest_base
-from ..ops.dict_search import resolve
+from ..ops.dict_search import resolve, searchsorted_rows
 from ..utils.u32 import MASK32, to_i64
 
 
@@ -30,6 +30,14 @@ def lookup_step(keys, blocks, term_block_start, counts, qkeys, L: int,
     if removed is not None and removed.shape[0] > 0:
         vals, n = setops.filter_removed(vals, n, removed)
     return found, vals, n, raw
+
+
+def prefix_range_step(keys, lo_keys, hi_keys):
+    """Prefixes -> dictionary ranges [lo, hi) by two batched binary
+    searches of the sorted key rows. hi_keys is each prefix saturated with
+    0xFF bytes and a length word of 0xFFFFFFFF (-1 as int32 bits), above
+    every term that holds the prefix (codec/keys.prefix_bounds)."""
+    return searchsorted_rows(keys, lo_keys), searchsorted_rows(keys, hi_keys)
 
 
 def _decode_tier(keys, blocks, term_block_start, counts, slots, max_probes,
@@ -319,12 +327,6 @@ def _dedup_adjacent(v: np.ndarray) -> np.ndarray:
     m[0] = True
     np.not_equal(v[1:], v[:-1], out=m[1:])
     return v[m]
-
-
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to inverted_index_2_tpu_torch yet "
-        f"(ROADMAP.md, queue 1 item {item})")
 
 
 def _round_up(x: int, m: int) -> int:

@@ -34,6 +34,14 @@ def jax_env(monkeypatch):
     monkeypatch.setenv("TPI_HOST_BOOL", "0")
 
 
+def _tables(lists, terms, removed):
+    voffs = np.zeros(len(lists) + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in lists], out=voffs[1:])
+    offs = np.arange(len(lists) + 1, dtype=np.int64) * 6
+    return build_host_tables(b"".join(terms), offs, np.concatenate(lists),
+                             voffs, removed)
+
+
 @pytest.fixture(scope="module")
 def corpus():
     rng = np.random.default_rng(0xC0FFEE)
@@ -47,11 +55,7 @@ def corpus():
               .astype(np.uint32)]
     terms = [f"t{i:05d}".encode() for i in range(len(lists))]
     removed = np.unique(lists[0][::4]).astype(np.uint32)
-    voffs = np.zeros(len(lists) + 1, dtype=np.int64)
-    np.cumsum([len(v) for v in lists], out=voffs[1:])
-    offs = np.arange(len(lists) + 1, dtype=np.int64) * 6
-    t = build_host_tables(b"".join(terms), offs, np.concatenate(lists),
-                          voffs, removed)
+    t = _tables(lists, terms, removed)
     port = QueryEngine(upload_tables(t, device="cpu"), L=L, device="cpu")
     jax_eng = jax_qe.QueryEngine(
         jax_qe.upload_tables(t, stride_align=STRIDE_ALIGN), L=L, q_bucket=8)
@@ -175,12 +179,36 @@ def test_lookup_matches_jax_and_host_read(tmp_path, rng, monkeypatch):
 
 
 def test_outside_the_slice_raises(corpus):
+    """The host route and the range and prefix reads answer what the JAX
+    engine answers, on the host route (retained tables) and, for the
+    reads, the device route."""
     lists, terms, queries, removed, port, jax_eng = corpus
-    for call in (lambda: port.lookup_host(queries[0]),
-                 lambda: port.boolean_host(queries, "or"),
-                 lambda: port.read_range()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    t = _tables(lists, terms, removed)
+    host = QueryEngine(upload_tables(t, device="cpu"), L=L, tables=t,
+                       device="cpu")
+    jax_host = jax_qe.QueryEngine(
+        jax_qe.upload_tables(t, stride_align=STRIDE_ALIGN), L=L, q_bucket=8,
+        tables=t)
+    probe = terms + [b"missing-term"]
+    for fr in (False, True):
+        got = host.lookup_host(probe, filter_removed=fr)
+        want = jax_host.lookup_host(probe, filter_removed=fr)
+        assert got[-1] is None and want[-1] is None  # the miss
+        _assert_rows(got[:-1], want[:-1])
+        for op in ("and", "or"):
+            _assert_rows(host.boolean_host(queries, op, filter_removed=fr),
+                         jax_host.boolean_host(queries, op,
+                                               filter_removed=fr))
+    for a, b in ((host, jax_host), (port, jax_eng)):
+        rows = [(x, v.tolist()) for x, v in a.read_range()]
+        assert rows == [(x, v.tolist()) for x, v in b.read_range()]
+        assert [x for x, _ in rows] == terms
+        got = a.prefix_search([b"t0000", b"t", b"u"])
+        want = b.prefix_search([b"t0000", b"t", b"u"])
+        assert set(got) == set(want) == {b"t0000", b"t"}
+        assert all(np.array_equal(got[p], want[p]) for p in got)
+    with pytest.raises(RuntimeError, match="keep_tables"):
+        port.lookup_host(queries[0])
 
 
 def test_empty_index_serves_empty_results():

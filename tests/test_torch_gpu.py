@@ -3,11 +3,16 @@
 two-run merge, the compaction of kept lanes) on the card against their
 plain torch versions, and the engine on
 CUDA against the engine on the CPU and a numpy oracle (AND, OR,
-pagination, staged lookup, and all of them with a delta tier live).
+pagination, staged lookup, and all of them with a delta tier live; range
+and prefix reads; the hybrid AND stream; a warm checkpoint start whose
+arena uploads on a side stream). The device routes are pinned
+(TPI_HOST_BOOL=0) unless a test asks for the host.
 
 Marked `gpu`: they need an NVIDIA card and nvcc and skip elsewhere. This
 file imports no `jax`, so on a machine without it run it with
 `python -m pytest --noconftest -m gpu tests/test_torch_gpu.py`."""
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +20,7 @@ import torch
 import chip_smoke
 from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine
 from inverted_index_2_tpu_torch.models import query_engine as port_qe
+from inverted_index_2_tpu_torch.models.checkpoint import save_tables
 from inverted_index_2_tpu_torch.models.snapshot import build_host_tables, upload_tables
 from inverted_index_2_tpu_torch.ops import (
     compaction,
@@ -34,6 +40,13 @@ from inverted_index_2_tpu_torch.ops.cuda_fused import (
 )
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _device_route(monkeypatch):
+    # auto may pick the host route on the card: these tests exist for the
+    # device paths
+    monkeypatch.setenv("TPI_HOST_BOOL", "0")
 
 
 @pytest.fixture
@@ -540,3 +553,131 @@ def test_engine_cuda_with_delta_matches_cpu(cuda):
         assert (a is None and b is None) or np.array_equal(a, b)
     assert cuda_bool.intersect_many.launches > k3
     assert cuda_decode.decode_postings.launches > k1
+
+
+def _byte_terms_tables(seed):
+    """Tables whose terms hold bytes 0x80 and 0xFF, a posting 0xFFFFFFFF
+    and the empty term, with lists past two ladder levels at L=128."""
+    rng = np.random.default_rng(seed)
+    terms = sorted({b"", b"\x80", b"\x80\x80a", b"\x80\xff", b"\xff",
+                    b"\xff\xff\xff", b"a\xff", b"z\x80"}
+                   | {f"p{i:03d}".encode() for i in range(150)})
+    lists = [np.unique(rng.integers(0, 2**32, size=int(rng.choice(
+        [1, 50, 300, 2000])), dtype=np.uint64).astype(np.uint32))
+        for _ in terms]
+    lists[1] = np.append(lists[1][lists[1] < 2**32 - 1], 2**32 - 1
+                         ).astype(np.uint32)
+    offs = np.zeros(len(terms) + 1, dtype=np.int64)
+    np.cumsum([len(x) for x in terms], out=offs[1:])
+    voffs = np.zeros(len(lists) + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in lists], out=voffs[1:])
+    return build_host_tables(b"".join(terms), offs, np.concatenate(lists),
+                             voffs)
+
+
+def test_engine_cuda_range_and_prefix_match_host(cuda):
+    """read_range and prefix_search on the device route (no tables: the
+    ranges by binary search of the device keys, the postings through K1)
+    equal the host route's reads of the retained tables."""
+    t = _byte_terms_tables(21)
+    gpu = QueryEngine(upload_tables(t, device=cuda), L=128, device=cuda)
+    host = QueryEngine(upload_tables(t, device="cpu"), L=128, tables=t,
+                       device="cpu")
+    gpu._RANGE_CHUNK = 64  # several chunks
+    k1 = cuda_decode.decode_postings.launches
+    for mn, mx in [(None, None), (b"p010", b"p120"), (b"\x80", b"\xff"),
+                   (b"\xff", None), (b"q", b"r")]:
+        a, b = list(gpu.read_range(mn, mx)), list(host.read_range(mn, mx))
+        assert [x[0] for x in a] == [x[0] for x in b]
+        assert all(np.array_equal(x[1], y[1]) for x, y in zip(a, b))
+    prefixes = [b"", b"p", b"p01", b"\x80", b"\x80\xff", b"\xff", b"\xff\xff",
+                b"a", b"z", b"\x7f", b"p149", b"q", b"\xff\xff\xff\xff"]
+    a, b = gpu.prefix_search(prefixes), host.prefix_search(prefixes)
+    assert set(a) == set(b) and b"\xff" in a
+    assert all(np.array_equal(a[p], b[p]) for p in a)
+    assert cuda_decode.decode_postings.launches > k1
+
+
+def test_engine_cuda_hybrid_stream_matches_device(cuda, monkeypatch):
+    """The hybrid AND stream (TPI_HYBRID=1, the link pinned below the AND
+    threshold): K2 serves batches from the head, the host from the tail,
+    and the result equals the device-only stream, with and without the
+    tombstone filter."""
+    lists, t = _corpus(31, n_terms=200)
+    terms = [f"t{i:05d}".encode() for i in range(len(lists))]
+    removed = np.unique(np.concatenate([v[::5] for v in lists[:40]]))
+    t.removed = removed.astype(np.uint32)
+    eng = QueryEngine(upload_tables(t, device=cuda), L=256, tables=t,
+                      device=cuda)
+    rng = np.random.default_rng(32)
+    batches = [[[terms[i] for i in rng.choice(len(terms), size=int(k),
+                                              replace=False)]
+                for k in rng.integers(2, 6, size=64)] for _ in range(12)]
+    for fr in (False, True):
+        want = eng.boolean_staged(batches, "and", fr, columnar=True)
+        monkeypatch.delenv("TPI_HOST_BOOL")
+        monkeypatch.setenv("TPI_HYBRID", "1")
+        monkeypatch.setattr(port_qe, "_LINK_MBPS", None)
+        monkeypatch.setenv("TPI_LINK_MBPS",
+                           str(QueryEngine._HOST_ROUTE_LINK_MBPS / 2))
+        assert eng._hybrid_staged("and")
+        k2 = cuda_fused.fused_and.launches
+        got = eng.boolean_staged(batches, "and", fr, columnar=True)
+        stats = eng.last_stream_stats
+        monkeypatch.setenv("TPI_HOST_BOOL", "0")
+        assert stats["host_batches"] > 0 and stats["device_batches"] > 0
+        assert cuda_fused.fused_and.launches > k2
+        assert stats["queries"] == 64 * len(batches)
+        for (gv, go), (wv, wo) in zip(got, want):
+            assert np.array_equal(go, wo) and np.array_equal(gv, wv)
+
+
+def test_warm_checkpoint_swaps_in_a_side_stream_upload(cuda, tmp_path,
+                                                       monkeypatch):
+    """from_checkpoint on the card serves from the host tables while the
+    arena uploads on a side stream (held here by a gate), then publishes
+    the uploaded snapshot: lookups and AND equal before and after the swap
+    and the device engine's, and after it K1 and K2 serve them."""
+    lists, t = _corpus(41, n_terms=150)
+    terms = [f"t{i:05d}".encode() for i in range(len(lists))]
+    path = str(tmp_path / "c.ckpt")
+    save_tables(t, path)
+    gate = threading.Event()
+    orig = port_qe.upload_on_side_stream
+    streams = []
+
+    def gated(tables, device, serve_stream):
+        gate.wait(timeout=60)
+        streams.append(serve_stream)
+        return orig(tables, device, serve_stream)
+
+    monkeypatch.setattr(port_qe, "upload_on_side_stream", gated)
+    ref = QueryEngine(upload_tables(t, device=cuda), L=256, device=cuda)
+    warm = QueryEngine.from_checkpoint(path, L=256, device=cuda)
+    assert not warm.device_ready() and warm.snap.n_terms == 0
+    queries = [[terms[i], terms[j]] for i, j in zip(range(0, 60, 2),
+                                                     range(1, 61, 2))]
+    want_lk = ref.lookup(terms + [b"missing"])
+    want_and = ref.boolean(queries, "and")
+
+    def same(eng):
+        for a, b in zip(eng.lookup(terms + [b"missing"]), want_lk):
+            assert (a is None and b is None) or np.array_equal(a, b)
+        for a, b in zip(eng.boolean(queries, "and"), want_and):
+            assert np.array_equal(a, b)
+
+    k1 = cuda_decode.decode_postings.launches
+    same(warm)
+    assert not warm.device_ready()
+    assert cuda_decode.decode_postings.launches == k1  # all on the host
+    gate.set()
+    warm.device_wait()
+    assert warm.device_ready() and warm.snap.n_terms == len(terms)
+    assert warm.snap.blocks.device.type == "cuda"
+    assert streams == [torch.cuda.current_stream(cuda)]
+    assert warm.upload_seconds is not None
+    k2 = cuda_fused.fused_and.launches
+    same(warm)
+    assert cuda_decode.decode_postings.launches > k1
+    assert cuda_fused.fused_and.launches > k2
+

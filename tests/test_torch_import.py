@@ -47,7 +47,10 @@ def test_port_imports_without_jax():
             "inverted_index_2_tpu_torch.inverted_index",
             "inverted_index_2_tpu_torch.shard",
             "inverted_index_2_tpu_torch.segment.writer",
-            "inverted_index_2_tpu_torch.codec.native"} <= set(mods)
+            "inverted_index_2_tpu_torch.codec.native",
+            "inverted_index_2_tpu_torch.codec.bitmask",
+            "inverted_index_2_tpu_torch.models.host_serve",
+            "inverted_index_2_tpu_torch.models.checkpoint"} <= set(mods)
     root = Path(inverted_index_2_tpu_torch.__file__).resolve().parents[1]
     res = subprocess.run([sys.executable, "-c", _PROBE, *mods],
                          capture_output=True, text=True, cwd=root,
@@ -70,6 +73,9 @@ def _sources():
 def test_no_jax_import_in_sources():
     paths = _sources()
     assert any(p.name == "chip_smoke.py" for p in paths)
+    names = {p.parent.name + "/" + p.name for p in paths}
+    assert {"models/host_serve.py", "models/checkpoint.py",
+            "codec/bitmask.py"} <= names
     for path in paths:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not _FORBIDDEN.match(line), f"{path}:{n}: {line}"

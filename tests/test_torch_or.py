@@ -294,7 +294,8 @@ def test_staged_prefix_pagination_full_bucket(tmp_path, jax_env):
     ii.put_many(docs)
     jii = JaxIndex(str(tmp_path / "jax"))
     jii.put_many(docs)
-    port = QueryEngine.from_index(ii, L=8, device="cpu")
+    # no tables: lookup_staged too takes the device route's concat classes
+    port = QueryEngine.from_index(ii, L=8, keep_tables=False, device="cpu")
     jax_eng = jax_qe.QueryEngine.from_index(jii, L=8, q_bucket=8)
     for op in ("or", "and"):
         (pv, pvo, pc), = port.boolean_staged([batch], op, columnar=True,

@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def _device_route(monkeypatch):
-    # the JAX engine's device route, as the port has no host route yet
+    # both engines' device routes: these tests exist for the dual step
     monkeypatch.setenv("TPI_HOST_BOOL", "0")
 
 
@@ -296,8 +296,12 @@ def test_boolean_staged_dual_stream(tmp_path):
                     assert np.array_equal(a, b)
     assert reserved > 0
     terms = [[b"aa-long", b"ee-new", b"zz-missing", b"cc"], [b"bb"]]
+    # with retained tables lookup_staged serves on the host: the dual
+    # stream's lookup runs on an engine over the same state without them
+    bare = QueryEngine(eng.snap, L=eng.L, device="cpu")
+    bare._publish(eng._state.replace(tables=None, delta_tables=None))
     for fr in (False, True):
-        got = eng.lookup_staged(terms, filter_removed=fr, columnar=True)
+        got = bare.lookup_staged(terms, filter_removed=fr, columnar=True)
         want = p.jax.lookup_staged(terms, filter_removed=fr, columnar=True)
         for g, w in zip(got, want):
             assert all(np.array_equal(a, b) for a, b in zip(g, w))
