@@ -80,12 +80,32 @@ Phases; any failure raises and the script exits non-zero:
      and dual OR-page streams. K4's calls are counted by entry on every
      path (no path may sort without a hint), K2's by output (no path may
      take the masked rows); every profile prints K4's,
-     K2's and K3's device time by kernel, and the AND profiles fail if a
-     topk kernel or a K4 compaction ran.
+     K1's, K2's and K3's device time by kernel, and the AND profiles fail
+     if a topk kernel or a K4 compaction ran;
+  6. the mesh engine (parallel/) at the same size: MeshQueryEngine started
+     from a checkpoint of the phase-5 tables at D = 1 and D = 4 partitions
+     on the one card; lookup of 8192 terms, boolean_staged AND and OR over
+     2 uniform batches (one query of the two longest lists, so the ladder
+     re-serves), OR pages, lookup_staged, prefix_search and read_range on
+     phase 5's inputs, each equal to the single-card QueryEngine bit for
+     bit and sampled against the oracle; refresh() through an additive
+     put (a delta tier on partition 0) and one dual AND batch, equal to the
+     single-card dual stream and the oracle; at D = 4, K1 (partition 0's
+     found mask), K3 (a query tile) and K4 (an OR tile's sort and
+     compaction) against their plain versions at the partition shapes, and
+     one profiled AND pass (K1 and K3, no K4 and no library sort) and OR
+     pass (K1 and K4, no library sort); QPS and max_memory_allocated;
+  7. the device merge (ops/merge.py) at one shard of the config-3
+     deployment: 9,800 terms of mean length 1,000 written from numpy arrays
+     as 8 overlapping segments, 1% of the doc ids tombstoned;
+     merge_views_device on the card bit-identical to merge_views, both
+     timed; Shard.merge at the default threshold takes the device branch
+     and writes the segment files a host merge writes.
 The last line is {"ok": true, "device": {...}}; before it come one JSON
-line with each kernel's launches, error, time against its plain version
-and the library call, and bound, and nvidia-smi's name and power limit of
-the card. A kernel's "ms" is one rule for every row (kernel_ms): CUDA
+line with each kernel's launches (over the paths of phases 5 and 6; a
+".mesh" row counts phase 6's paths alone), error, time against its plain
+version and the library call, and bound, and nvidia-smi's name and power
+limit of the card. A kernel's "ms" is one rule for every row (kernel_ms): CUDA
 events around each call alone, made with the L2 emptied and the host's
 enqueue hidden, so that it holds against a bound over the memory rate;
 every row must not beat its bound. The phase-3 lines print beside it the
@@ -135,8 +155,9 @@ SORT_REPORTED = (2048, 8192)  # the modal class of config-3 OR (SB = 64)
 
 # K4's kernels as the profiler names them
 K4_KERNELS = ("sort_tiles_kernel", "merge_runs_kernel", "compact_rows_kernel")
-# ... and K2's and K3's
+# ... and K2's and K3's, and K1's
 AND_KERNELS = ("fused_and_kernel", "intersect_kernel")
+K1_KERNELS = ("decode_postings_kernel",)
 
 
 class SmokeError(RuntimeError):
@@ -1772,6 +1793,7 @@ def phase_host(torch, eng, terms_mat, main_list, term_bytes, streams, qps,
           f"s; stats() {eng.stats()}")
     print(f"[phase 5] host route phase took {time.perf_counter() - t_phase:.4f}"
           " s")
+    return prefixes, windows
 
 
 def zipf_stream(rng, n_terms, n_batches):
@@ -1791,13 +1813,15 @@ def uniform_stream(rng, n_terms, n_batches):
 
 
 def run_stream(eng, term_list, term_bytes, stream, name, op="and",
-               prefix_p=0, depth=4, lookup=False, reps=3, stream_stats=True):
+               prefix_p=0, depth=4, lookup=False, reps=3, stream_stats=True,
+               tag="phase 5", sink=None):
     """Serve one stream `reps` times after a warm pass; check a sample of
     the last pass against the oracle (term_list(i): term i's postings).
     stream: batches of queries (term index arrays), or of term indexes with
     lookup=True. An AND stream's counts (last_stream_stats) are checked
-    unless stream_stats is False (the host route keeps none). Returns the
-    byte batches and the median QPS."""
+    unless stream_stats is False (the host route and the mesh keep none).
+    The last pass's results are appended to `sink` when one is given.
+    Returns the byte batches and the median QPS."""
     if lookup:
         batches = [[term_bytes[i] for i in b] for b in stream]
 
@@ -1842,7 +1866,9 @@ def run_stream(eng, term_list, term_bytes, stream, name, op="and",
                   f"{name}: batch {bi} query {qi} differs from the oracle")
             checked += 1
     nres = sum(len(o[0]) for o in out)
-    print(f"[phase 5] {name}: {nq} queries per pass, QPS of {reps} passes "
+    if sink is not None:
+        sink.append(out)
+    print(f"[{tag}] {name}: {nq} queries per pass, QPS of {reps} passes "
           f"{[round(q, 1) for q in qps]}; {nres} result values{stats}; "
           f"{checked} sampled queries equal the oracle")
     return batches, sorted(qps)[len(qps) // 2]
@@ -1853,10 +1879,11 @@ def run_stream(eng, term_list, term_bytes, stream, name, op="and",
 NO_COMPACTION = ("topk", "kthvalue", "bitonicsort", "compact_rows_kernel")
 
 
-def profile_stream(torch, serve, name, forbid=()):
+def profile_stream(torch, serve, name, forbid=(), tag="phase 5"):
     """Device busy share of one stream pass: the summed time of the kernels
     and copies on the card over the pass's wall time (torch.profiler). No
-    kernel whose name holds a word of `forbid` may have run."""
+    kernel whose name holds a word of `forbid` may have run. Returns the
+    launches of each kernel of K1-K4 in the pass, by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1878,7 +1905,7 @@ def profile_stream(torch, serve, name, forbid=()):
                    if e.key == "cudaLaunchKernel")
     # K4's device time by kernel (csrc/sort_rows.cu) and its share
     k4 = {k: [0.0, 0] for k in K4_KERNELS}
-    k23 = {k: [0.0, 0] for k in AND_KERNELS}
+    k23 = {k: [0.0, 0] for k in K1_KERNELS + AND_KERNELS}
     for e in events:
         for group in (k4, k23):
             for k in group:
@@ -1886,7 +1913,7 @@ def profile_stream(torch, serve, name, forbid=()):
                     group[k][0] += e.self_device_time_total
                     group[k][1] += e.count
     k4_us = sum(v[0] for v in k4.values())
-    print(f"[phase 5] profile {name}: wall {wall:.6f} s, device busy "
+    print(f"[{tag}] profile {name}: wall {wall:.6f} s, device busy "
           f"{busy_us / 1e6:.6f} s = {busy_us / 1e6 / wall:.4f} of the pass, "
           f"{launches} kernel launches; top device time: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total:.1f} us "
@@ -1894,9 +1921,10 @@ def profile_stream(torch, serve, name, forbid=()):
           + f"; K4 {k4_us:.1f} us = {k4_us / max(busy_us, 1e-9):.4f} of the "
           "device time: "
           + ", ".join(f"{k} {v[0]:.1f} us x{v[1]}" for k, v in k4.items())
-          + "; K2 and K3: "
+          + "; K1, K2 and K3: "
           + ", ".join(f"{k} {v[0]:.1f} us x{v[1]}" for k, v in k23.items())
           + (f"; none of {forbid} ran" if forbid else ""))
+    return {k: v[1] for group in (k4, k23) for k, v in group.items()}
 
 
 def phase_main(torch, args, device="cuda"):
@@ -2001,6 +2029,432 @@ def phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive):
     profile_stream(torch, lambda: eng.boolean_staged(
         dub, "or", columnar=True, depth=4, prefix_p=PAGE_P), "dual OR pages")
     print(f"[phase 5] delta window took {time.perf_counter() - t0:.4f} s")
+
+
+
+# phase 6: the mesh engine at the phase-5 size, on partitions of one card
+MESH_DS = (1, 4)
+N_MESH_BATCHES = 2
+MESH_DELTA_DOCS = 64
+# phase 7: one shard of the config-3 deployment (10M terms over 1,024
+# shards) in overlapping segments
+MERGE_TERMS = 9_800
+MERGE_SEGMENTS = 8
+
+# the library sorts that would stand in for K4 (lower case, within the
+# profiler's kernel names)
+TORCH_SORTS = ("bitonicsort", "radixsort", "topk", "kthvalue")
+
+
+@contextlib.contextmanager
+def capture_first(mod, name):
+    """While active, records the positional arguments of the first call of
+    mod.name (and passes every call through): yields a list that holds
+    them once the call has happened."""
+    got = []
+    real = getattr(mod, name)
+
+    def spy(*a, **k):
+        if not got:
+            got.append(a)
+        return real(*a, **k)
+
+    setattr(mod, name, spy)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, real)
+
+
+def phase_mesh_kernels(torch, m, batch):
+    """Phase 6, K1, K3 and K4 at the shapes the partitions give them, each
+    against its plain version and timed beside it and its bound: K1 on
+    partition 0 for every term slot of one uniform batch with the
+    partition's found mask (the rows it does not hold stay unwritten), K3 on
+    the first query tile of that batch's AND pass, K4's sort and compaction
+    on the first tile of its OR pass. Returns the kernels-line rows."""
+    from types import SimpleNamespace
+
+    from inverted_index_2_tpu_torch.models import steps
+    from inverted_index_2_tpu_torch.ops.dict_search import resolve
+    from inverted_index_2_tpu_torch.utils.u32 import to_device
+
+    s = m.snap
+    dev = s.devices[0]
+    qk, kv = steps._pack_queries(batch, s.width)
+    Q, K = qk.shape[:2]
+    flat = to_device(qk, dev).reshape(Q * K, -1)
+    idx, found = resolve(s.keys[0], flat, s.hash_slots[0], s.max_probes)
+    check(0 < int(found.sum()) < int(kv.sum()),
+          "K1 mesh: partition 0 holds all or none of the batch's terms")
+    part = SimpleNamespace(blocks=s.blocks[0],
+                           term_block_start=s.term_block_start[0],
+                           counts=s.counts[0])
+    res = {"decode_postings.mesh": _check_k1(
+        torch, part, idx.to(torch.int32), L_MAIN, found)}
+    del flat, idx, found
+    with capture_first(steps, "intersect_many") as got:
+        m.boolean(batch, "and")
+    lists, ncnt, kvt = got[0]
+    err, k_ms, p_ms, b_ms, b_by, _ = _check_k3(
+        torch, lists, ncnt, kvt, f"mesh tile, D={s.n_devices}")
+    res["intersect_many.mesh"] = (err, k_ms, p_ms, None, b_ms, b_by)
+    del lists, ncnt, kvt, got
+    with CaptureK4() as cap:
+        m.boolean(batch, "or")
+    x, run = cap.sort
+    res["sort_rows.mesh"] = _check_sort(torch, x, run,
+                                        f"mesh OR tile, D={s.n_devices}")
+    vals, keep = cap.compact
+    res["compact_rows.mesh"] = _check_compact(
+        torch, vals, keep, f"mesh OR tile, D={s.n_devices}")
+    del cap, x, vals, keep
+    torch.cuda.empty_cache()
+    return res
+
+
+def _same_staged(a, b):
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(u, w) for u, w in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def phase_mesh(torch, eng, terms_mat, values, voffs, term_bytes, uniform,
+               main_list, drive, reads, seed):
+    """Phase 6: MeshQueryEngine at the phase-5 size, D = 1 and D = 4
+    partitions on cuda:0, started from a checkpoint of the phase-5 tables
+    reconciled against an (empty) InvertedIndex. For each D: lookup of
+    BATCH terms, boolean_staged AND and OR over N_MESH_BATCHES uniform
+    batches (a query of the two longest lists among them, so the ladder
+    re-serves), OR pages, lookup_staged, prefix_search and read_range
+    (phase 5's inputs); every result equal to the single-card QueryEngine's
+    bit for bit, sampled results to the oracle. Then refresh() through an
+    additive put (a delta on partition 0) and one dual AND batch, equal to
+    the single-card engine's dual stream and the oracle. At D = 4 the
+    kernels are checked at the partition shapes and one AND and one OR
+    pass are profiled. Returns the kernels-line rows."""
+    import gc
+
+    from inverted_index_2_tpu_torch import InvertedIndex, MeshQueryEngine
+    from inverted_index_2_tpu_torch.models.checkpoint import save_tables
+    from inverted_index_2_tpu_torch.models.snapshot import (
+        _index_fingerprint, snapshot_tables, upload_tables)
+
+    t_phase = time.perf_counter()
+    n = len(terms_mat)
+    prefixes, windows = reads
+    longest = np.argsort(np.diff(voffs))[-2:]
+    stream = [list(b) for b in uniform[:N_MESH_BATCHES]]
+    stream[0][0] = longest
+    first_terms = [[q[0] for q in b] for b in stream]
+    pick = np.random.default_rng(seed + 6).choice(n, size=BATCH,
+                                                  replace=False)
+    lk_terms = [term_bytes[i] for i in pick]
+
+    # the single-card engine's answers on the device route (reads on its
+    # tables), main tier only
+    eng._publish(eng._state.replace(delta=None, delta_tables=None))
+    ub = [[[term_bytes[i] for i in q] for q in b] for b in stream]
+    lb = [[term_bytes[i] for i in b] for b in first_terms]
+    ref = {"lookup": eng.lookup(lk_terms),
+           "and": eng.boolean_staged(ub, "and", columnar=True, depth=4),
+           "or": eng.boolean_staged(ub, "or", columnar=True, depth=4),
+           "pages": eng.boolean_staged(ub, "or", columnar=True, depth=4,
+                                       prefix_p=PAGE_P),
+           "lookup_staged": eng.lookup_staged(lb, columnar=True),
+           "prefix": eng.prefix_search(prefixes),
+           "range": [list(eng.read_range(mn, mx)) for mn, mx in windows]}
+
+    # the additive put of the refresh: documents of 6 main terms and 2 of
+    # 32 new ones (first byte a digit: never a main term), ids above main's
+    rng = np.random.default_rng(seed + 7)
+    new_terms = [b"%d" % (i % 10) + bytes(rng.integers(97, 123, 11,
+                                                       dtype=np.uint8))
+                 for i in range(32)]
+    top = int(values.max()) + 1
+    docs = []
+    for k in range(MESH_DELTA_DOCS):
+        terms = ([term_bytes[i] for i in rng.choice(n, 6, replace=False)]
+                 + [new_terms[j] for j in rng.choice(32, 2, replace=False)])
+        docs.append((terms, top + 7 * k))
+    added = {}
+    for terms, doc in docs:
+        for t in terms:
+            added.setdefault(t, []).append(doc)
+    index_of = {term_bytes[i]: i for i in range(n)}
+
+    def union_list(t):
+        base = (main_list(index_of[t]) if t in index_of
+                else np.zeros(0, np.uint32))
+        extra = np.array(added.get(t, []), dtype=np.uint32)
+        return np.union1d(base, extra).astype(np.uint32)
+
+    # the dual batch: each delta document's first grown term with its new
+    # terms, then a uniform batch
+    dual_batch = ([[terms[0], terms[6], terms[7]] for terms, _ in docs]
+                  + ub[1][: BATCH - len(docs)])
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "main.ckpt")
+        # the checkpoint's fingerprint is an empty index's: an engine
+        # started from it against an empty index has nothing to reconcile,
+        # and the index's writes are its delta
+        save_tables(eng.tables, path, fingerprint=_index_fingerprint(
+            InvertedIndex(os.path.join(d, "empty")), False))
+        for D in MESH_DS:
+            tag = f"mesh{D}"
+            ii = InvertedIndex(os.path.join(d, tag))
+            t0 = time.perf_counter()
+            m = MeshQueryEngine.from_checkpoint(
+                path, index=ii, mesh=[eng.device] * D, L=L_MAIN)
+            t_build = time.perf_counter() - t0
+            check(m.delta is None and m.refresh(ii) is False,
+                  f"{tag}: the checkpoint is not reconciled with the index")
+            nw = m.warmup()
+            st = m.stats()
+            print(f"[phase 6] D={D}: from_checkpoint in {t_build:.4f} s, "
+                  f"warmup() {nw} paths; partition {st['partition']}, "
+                  f"ladder {st['ladder']}")
+            if D == max(MESH_DS):
+                rows = phase_mesh_kernels(torch, m, ub[0])
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = drive(f"{tag} lookup", lambda: m.lookup(lk_terms))
+            t_lk = time.perf_counter() - t0
+            check(all(np.array_equal(a, b) for a, b in zip(got, ref["lookup"])),
+                  f"{tag}: lookup differs from the single-card engine")
+            for j in np.random.default_rng(3).choice(BATCH, 256,
+                                                     replace=False):
+                check(np.array_equal(got[j], main_list(pick[j])),
+                      f"{tag}: lookup of term {pick[j]} differs from the "
+                      "corpus")
+            qps = {}
+            for name, op, P, lookup, src in (
+                    ("and", "and", 0, False, stream),
+                    ("or", "or", 0, False, stream),
+                    ("pages", "or", PAGE_P, False, stream),
+                    ("lookup_staged", "or", 0, True, first_terms)):
+                sink = []
+                _, qps[name] = drive(f"{tag} {name}", lambda: run_stream(
+                    m, main_list, term_bytes, src, f"{tag} {name}", op=op,
+                    prefix_p=P, lookup=lookup, reps=2, stream_stats=False,
+                    tag="phase 6", sink=sink))
+                check(_same_staged(sink[0], ref[name]),
+                      f"{tag} {name}: differs from the single-card engine")
+            want = and_oracle(main_list, longest)
+            got0 = ref["and"][0]
+            check(np.array_equal(got0[0][got0[1][0]:got0[1][1]], want),
+                  f"{tag}: the AND of the two longest lists differs")
+            t0 = time.perf_counter()
+            pm_ = drive(f"{tag} prefix", lambda: m.prefix_search(prefixes))
+            t_p = time.perf_counter() - t0
+            check(list(pm_) == list(ref["prefix"]) and all(
+                np.array_equal(pm_[p], ref["prefix"][p]) for p in pm_),
+                f"{tag}: prefix_search differs from the single-card engine")
+            t0 = time.perf_counter()
+            rr = [drive(f"{tag} range", lambda: list(m.read_range(mn, mx)))
+                  for mn, mx in windows]
+            t_r = time.perf_counter() - t0
+            check(all(len(a) == len(b) and all(
+                x[0] == y[0] and np.array_equal(x[1], y[1])
+                for x, y in zip(a, b)) for a, b in zip(rr, ref["range"])),
+                f"{tag}: read_range differs from the single-card engine")
+            del pm_, rr, got
+            print(f"[phase 6] D={D} median QPS: AND uniform "
+                  f"{qps['and']:.1f}, OR uniform {qps['or']:.1f}, OR pages "
+                  f"{qps['pages']:.1f}, lookup_staged "
+                  f"{qps['lookup_staged']:.1f}; lookup {BATCH} terms in "
+                  f"{t_lk:.4f} s; prefix_search {len(prefixes)} prefixes in "
+                  f"{t_p:.4f} s; read_range {len(windows)} windows in "
+                  f"{t_r:.4f} s; every result equals the single-card engine; "
+                  f"max_memory_allocated {torch.cuda.max_memory_allocated()} "
+                  "bytes")
+            if D == max(MESH_DS):
+                got = profile_stream(torch, lambda: m.boolean_staged(
+                    ub, "and", columnar=True, depth=4),
+                    f"mesh D={D} AND uniform", K4_KERNELS + TORCH_SORTS,
+                    tag="phase 6")
+                check(got["decode_postings_kernel"] > 0
+                      and got["intersect_kernel"] > 0,
+                      f"mesh D={D} AND: K1 or K3 did not run: {got}")
+                got = profile_stream(torch, lambda: m.boolean_staged(
+                    ub, "or", columnar=True, depth=4),
+                    f"mesh D={D} OR uniform", TORCH_SORTS, tag="phase 6")
+                check(got["decode_postings_kernel"] > 0
+                      and got["merge_runs_kernel"] > 0
+                      and got["compact_rows_kernel"] > 0,
+                      f"mesh D={D} OR: K1 or K4 did not run: {got}")
+
+            # refresh through an additive put, then one dual AND batch
+            for terms, doc in docs:
+                ii.put(terms, doc)
+            t0 = time.perf_counter()
+            check(m.refresh(ii) is True and m.delta is not None,
+                  f"{tag}: the additive put made no delta tier")
+            t_ref = time.perf_counter() - t0
+            if D == MESH_DS[0]:
+                dt = snapshot_tables(ii)  # the index holds the delta alone
+                eng._publish(eng._state.replace(
+                    delta=upload_tables(dt, device=eng.device),
+                    delta_tables=dt))
+                ref["dual"] = eng.boolean_staged([dual_batch], "and",
+                                                 columnar=True)
+                eng._publish(eng._state.replace(delta=None,
+                                                delta_tables=None))
+                check(m.stats()["delta_terms"] == dt.n_terms,
+                      f"{tag}: the delta tier holds the wrong terms")
+            t0 = time.perf_counter()
+            got = drive(f"{tag} dual and", lambda: m.boolean_staged(
+                [dual_batch], "and", columnar=True))
+            t_dual = time.perf_counter() - t0
+            check(_same_staged(got, ref["dual"]),
+                  f"{tag}: the dual AND batch differs from the single-card "
+                  "engine's dual stream")
+            vals, vo = got[0]
+            hits = 0
+            for qi in list(range(len(docs))) + list(
+                    np.random.default_rng(5).choice(len(dual_batch), 64)):
+                w = None
+                for t in dual_batch[qi]:
+                    v = union_list(t)
+                    w = v if w is None else np.intersect1d(w, v)
+                check(np.array_equal(vals[vo[qi]:vo[qi + 1]], w),
+                      f"{tag}: dual AND query {qi} differs from the oracle")
+                hits += len(w) > 0
+            print(f"[phase 6] D={D}: refresh() with {len(docs)} new "
+                  f"documents in {t_ref:.4f} s, delta "
+                  f"{m.delta.n_real.tolist()} terms by partition; one dual "
+                  f"AND batch of {len(dual_batch)} in {t_dual:.4f} s equals "
+                  f"the single-card dual stream and the oracle ({hits} "
+                  "checked queries non-empty)")
+            del m, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"[phase 6] took {time.perf_counter() - t_phase:.4f} s")
+    return rows
+
+
+def _segment_bytes(d):
+    names = sorted(x for x in os.listdir(d) if x.endswith(("_dict", "_vals")))
+    return sorted(open(os.path.join(d, x), "rb").read() for x in names)
+
+
+def phase_merge(torch, seed, device="cuda"):
+    """Phase 7: the device merge at one shard of the config-3 deployment:
+    MERGE_TERMS terms of geometric length (mean 1,000) written from numpy
+    arrays as MERGE_SEGMENTS normal segments (each posting in one random
+    segment, a tenth of them in a second: the inputs overlap), and 1% of
+    the distinct doc ids tombstoned. merge_views_device on the card
+    against merge_views, both timed; then Shard.merge at the default
+    threshold, which takes the device branch, against a host merge of a
+    copy of the shard: the same segment files, the same reads."""
+    import shutil
+
+    import inverted_index_2_tpu_torch.shard as shard_mod
+    from inverted_index_2_tpu_torch import Shard, to_slice
+    from inverted_index_2_tpu_torch.ops import merge as merge_mod
+    from inverted_index_2_tpu_torch.segment import writer as seg_writer
+
+    t_phase = time.perf_counter()
+    terms_mat, _, values, voffs = gen_corpus(MERGE_TERMS, 1000, seed)
+    n = len(terms_mat)
+    rng = np.random.default_rng(seed)
+    term_of = np.repeat(np.arange(n), np.diff(voffs))
+    seg = rng.integers(0, MERGE_SEGMENTS, size=len(values))
+    seg2 = np.where(rng.random(len(values)) < 0.1,
+                    rng.integers(0, MERGE_SEGMENTS, size=len(values)), -1)
+    distinct = np.unique(values)
+    removed = np.sort(rng.choice(distinct, size=len(distinct) // 100,
+                                 replace=False)).astype(np.uint32)
+    with tempfile.TemporaryDirectory() as d:
+        a, b = os.path.join(d, "device"), os.path.join(d, "host")
+        os.makedirs(a)
+        n_in = 0
+        for k in range(MERGE_SEGMENTS):
+            sel = (seg == k) | (seg2 == k)
+            cnt = np.bincount(term_of[sel], minlength=n)
+            live = np.nonzero(cnt)[0]
+            sv = np.zeros(len(live) + 1, dtype=np.int64)
+            np.cumsum(cnt[live], out=sv[1:])
+            seg_writer.write_normal_segment(
+                a, terms_mat[live].tobytes(),
+                np.arange(len(live) + 1, dtype=np.int64) * 12,
+                values[sel], sv)
+            n_in += int(sel.sum())
+        sh = Shard(a)
+        sh.remove(removed)
+        shutil.copytree(a, b)
+        views = [s.view for s in sh.segments.snapshot()]
+        est = sum(shard_mod._estimate_values(v) for v in views)
+        check(len(views) == MERGE_SEGMENTS
+              and est >= shard_mod.DEVICE_MERGE_MIN_VALUES,
+              f"phase 7: {len(views)} segments of {est} postings")
+        rem = sh.removed_list.values()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = merge_mod.merge_views_device(views, rem, device=device)
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = shard_mod.merge_views(views, rem)
+        t_host = time.perf_counter() - t0
+        check(got[0] == want[0] and all(np.array_equal(x, y) for x, y in
+                                        zip(got[1:], want[1:])),
+              "phase 7: merge_views_device differs from merge_views")
+        n_out = len(want[2])
+        del got, views
+        calls = []
+        real = merge_mod.merge_views_device
+
+        def spy(views, removed=None, *, device="cuda"):
+            calls.append(str(device))
+            return real(views, removed, device=device)
+
+        merge_mod.merge_views_device = spy
+        try:
+            t0 = time.perf_counter()
+            check(sh.merge(2, MERGE_SEGMENTS) == MERGE_SEGMENTS,
+                  "phase 7: Shard.merge did not take every segment")
+            t_shard = time.perf_counter() - t0
+        finally:
+            merge_mod.merge_views_device = real
+        check(calls == [str(shard_mod.MERGE_DEVICE)],
+              f"phase 7: the device branch ran {calls}")
+        host_sh = Shard(b)
+        limit = shard_mod.DEVICE_MERGE_MIN_VALUES
+        shard_mod.DEVICE_MERGE_MIN_VALUES = 1 << 62
+        try:
+            t0 = time.perf_counter()
+            check(host_sh.merge(2, MERGE_SEGMENTS) == MERGE_SEGMENTS,
+                  "phase 7: the host Shard.merge did not take every segment")
+            t_shard_host = time.perf_counter() - t0
+        finally:
+            shard_mod.DEVICE_MERGE_MIN_VALUES = limit
+        check(_segment_bytes(a) == _segment_bytes(b),
+              "phase 7: the device merge's segment files differ from the "
+              "host merge's")
+        rd = [(tv.term, tv.values) for tv in to_slice(sh.read(None, None))]
+        rh = [(tv.term, tv.values) for tv in to_slice(host_sh.read(None,
+                                                                   None))]
+        blob, offs, vals, vo = want
+        check(len(rd) == len(rh) == len(offs) - 1 and all(
+            x[0] == y[0] == blob[offs[i]:offs[i + 1]]
+            and np.array_equal(x[1], y[1])
+            and np.array_equal(x[1], vals[vo[i]:vo[i + 1]])
+            for i, (x, y) in enumerate(zip(rd, rh))),
+            "phase 7: the merged shard reads back differently")
+        del rd, rh, want
+    print(f"[phase 7] device merge of one shard: {MERGE_SEGMENTS} segments, "
+          f"{n} terms, {len(values)} postings ({n_in} with the overlap), "
+          f"{len(removed)} tombstones, {n_out} postings out; "
+          f"merge_views_device {times[1]:.4f} s (first call "
+          f"{times[0]:.4f} s), merge_views {t_host:.4f} s, bit-identical; "
+          f"Shard.merge at the default threshold "
+          f"({shard_mod.DEVICE_MERGE_MIN_VALUES}) took the device branch in "
+          f"{t_shard:.4f} s (host merge {t_shard_host:.4f} s): the same "
+          f"segment files, the same reads; phase took "
+          f"{time.perf_counter() - t_phase:.4f} s")
 
 
 def main(argv=None) -> int:
@@ -2152,10 +2606,11 @@ def main(argv=None) -> int:
         lkb, columnar=True, depth=3), "lookup_staged")
     del dev_eng
     print(f"[phase 5] main tier paths took {time.perf_counter() - t_main:.4f} s")
-    phase_host(torch, eng, terms_mat, main_list, term_bytes,
-               (uniform, zipf, first_terms),
-               {"and uniform": qps_u, "and zipf": qps_z,
-                "or uniform": qps_or, "lookup_staged": qps_lk}, drive)
+    reads = phase_host(torch, eng, terms_mat, main_list, term_bytes,
+                       (uniform, zipf, first_terms),
+                       {"and uniform": qps_u, "and zipf": qps_z,
+                        "or uniform": qps_or, "lookup_staged": qps_lk},
+                       drive)
 
     # the delta tier is made after the main tier's paths, so those run in
     # the same process state as before it existed; K3's phase-3 check
@@ -2174,7 +2629,12 @@ def main(argv=None) -> int:
                                 baseline))
     del d_uniform_b
     phase_delta_window(torch, eng, delta, d_uniform, d_zipf, drive)
-    print(f"[phase 5] kernel launches per path {per_path}; total {launches}")
+    del delta
+    kern.update(phase_mesh(torch, eng, terms_mat, values, voffs, term_bytes,
+                           uniform, main_list, drive, reads, args.seed))
+    phase_merge(torch, args.seed)
+    print(f"[phases 5-6] kernel launches per path {per_path}; total "
+          f"{launches}")
     concat = ("sort_rows.runs",)
     dual = ("decode_postings", "sort_rows.two_run", "sort_rows.compact")
     for path, names in (
@@ -2192,10 +2652,30 @@ def main(argv=None) -> int:
             ("dual lookup", ("decode_postings",)),
             ("hybrid and uniform", ("fused_and", "fused_and.width")),
             ("device prefix", ("decode_postings",)),
-            ("device range", ("decode_postings",))):
+            ("device range", ("decode_postings",))) + tuple(
+                (f"mesh{D} {p}", names) for D in MESH_DS
+                for p, names in (
+                    ("lookup", ("decode_postings",)),
+                    ("and", ("decode_postings", "intersect_many")),
+                    ("or", ("decode_postings",) + concat
+                     + ("sort_rows.compact",)),
+                    ("pages", ("decode_postings",) + concat
+                     + ("sort_rows.compact",)),
+                    ("lookup_staged", ("decode_postings",
+                                       "sort_rows.compact")),
+                    ("prefix", ("decode_postings",)),
+                    ("range", ("decode_postings",)),
+                    ("dual and", dual + ("intersect_many",)))):
         for name in names:
             check(per_path[path][name] > 0,
                   f"the {path} path never launched {name}")
+    mesh_launches = {name: 0 for name in launches}
+    for path, got in per_path.items():
+        if path.startswith("mesh"):
+            # the JAX mesh has no fused path, and neither has the port's
+            check(got["fused_and"] == 0, f"the {path} path launched K2")
+            for name, c in got.items():
+                mesh_launches[name] += c
     for path in ("host and uniform", "host and zipf", "host or uniform",
                  "host lookup_staged"):
         check(not any(per_path[path].values()),
@@ -2227,7 +2707,9 @@ def main(argv=None) -> int:
     # lines). K4 has a row per entry that the paths launch: "sort_rows" is the sort from 128-lane
     # runs at the modal concat class and counts every K4 call; no path
     # launches the general sort (checked above), whose times are in the
-    # phase-3 lines only
+    # phase-3 lines only. The ".mesh" rows are phase 6's partition shapes
+    # (K1 with partition 0's found mask, K3 on a query tile, K4's sort and
+    # compaction of an OR tile), with the launches of the mesh paths alone
     meta = {"decode_postings": k1 + ("decode_postings",),
             "decode_postings.found": k1 + ("decode_postings",),
             "fused_and": k2 + ("fused_and.width",),
@@ -2235,14 +2717,19 @@ def main(argv=None) -> int:
             "intersect_many": k3 + ("intersect_many",),
             "sort_rows": k4 + ("sort_rows",),
             "sort_rows.two_run": k4 + ("sort_rows.two_run",),
-            "compact_rows": k4 + ("sort_rows.compact",)}
+            "compact_rows": k4 + ("sort_rows.compact",),
+            "decode_postings.mesh": k1 + ("decode_postings",),
+            "intersect_many.mesh": k3 + ("intersect_many",),
+            "sort_rows.mesh": k4 + ("sort_rows.runs",),
+            "compact_rows.mesh": k4 + ("sort_rows.compact",)}
     rows = []
     for name, (source, replaces, counted) in meta.items():
         err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]
         check(b_ms <= ms, f"{name}: its time {ms} ms beat its bound "
               f"{b_ms} ms ({b_by})")
+        n = (mesh_launches if name.endswith(".mesh") else launches)[counted]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[counted],
+                     "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms, "lib_ms": lib_ms})

@@ -41,12 +41,11 @@ stream; the uploaded snapshot is published in one assignment when it has
 landed (device_ready, device_wait). With checkpoint_path set, every main
 tier rebuild saves the tables again.
 
-What the JAX engine does that the port does not yet is ROADMAP queue 1
-items 9 (the device merge) and 10 (the mesh engine).
+The same serving over partitions of the index on several devices, or
+several partitions of one card, is parallel/mesh_engine.MeshQueryEngine.
 """
 from __future__ import annotations
 
-import itertools as it
 import math
 import os
 import threading
@@ -84,6 +83,7 @@ from .steps import (
     _dedup_adjacent,
     _ladder,
     _narrow_keys,
+    _pack_queries,
     _resolve_sb_step,
     _round_up,
     boolean_fused_staged_step,
@@ -854,22 +854,9 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
     # -- boolean AND -------------------------------------------------------
 
     def _pack_boolean(self, st: ServingState, queries):
-        """Query batch -> (qk (Q, K, W+1) uint32, kv (Q,) int32); one pack
-        over the flattened terms."""
-        nq = len(queries)
-        kv = np.fromiter(map(len, queries), np.int32, count=nq)
-        K = max(1, int(kv.max(initial=0)))
-        W = st.width()
-        qk = np.zeros((nq, K, W + 1), dtype=np.uint32)
-        packed = keys_mod.pack_terms(list(it.chain.from_iterable(queries)),
-                                     width=W)
-        kvq = kv.astype(np.int64)
-        rows = np.repeat(np.arange(nq), kvq)
-        qoffs = np.zeros(nq + 1, dtype=np.int64)
-        np.cumsum(kvq, out=qoffs[1:])
-        cols = np.arange(qoffs[-1], dtype=np.int64) - np.repeat(qoffs[:-1], kvq)
-        qk[rows, cols] = packed
-        return qk, kv
+        """Query batch -> (qk (Q, K, W+1) uint32, kv (Q,) int32) at the
+        state's query width."""
+        return _pack_queries(queries, st.width())
 
     def _pack_boolean_cols(self, st: ServingState, blob, offsets, qoffs):
         """Columnar batch (blob, offsets[T+1], qoffs[Q+1]) -> (qk, kv)."""

@@ -110,10 +110,12 @@ def _empty_tables(width: int, removed=None) -> HostTables:
 
 
 def build_host_tables(blob, offsets, values, voffs, removed=None,
-                      width=None) -> HostTables:
+                      width=None, build_hash: bool = True) -> HostTables:
     """Merged (blob, offsets, values, voffs) arrays -> compact host tables:
     packed keys, the arena codec stream (power-of-two byte widths
-    {0, 8, 16, 32}), per-block offsets and the term hash table."""
+    {0, 8, 16, 32}), per-block offsets and the term hash table.
+    build_hash=False leaves the table empty (the mesh builds one per
+    partition at a common size, parallel/mesh.py)."""
     offsets = np.asarray(offsets, dtype=np.int64)
     n = len(offsets) - 1
     if n == 0:
@@ -144,7 +146,10 @@ def build_host_tables(blob, offsets, values, voffs, removed=None,
     h_b = (headers & 0xFF).astype(np.int64)
     h_nblk = ((headers >> 8) & 0xFF).astype(np.int64)
     blk_words = 2 + packing._packed_words(h_nblk, h_b)
-    slots, max_probes = hashing.build_table_with_probes(keys)
+    if build_hash:
+        slots, max_probes = hashing.build_table_with_probes(keys)
+    else:
+        slots, max_probes = np.full(8, -1, dtype=np.int32), 1
     return HostTables(
         keys=keys,
         words=words,

@@ -69,6 +69,36 @@ def _finish_host_copy(pending):
     return [h.numpy() for h in hosts]
 
 
+def _wire_fetch(outs, ocs, mds):
+    """Second copy of a full-result harvest: per result matrix (with its
+    host counts and masked max delta), the delta-packed plane at the width
+    that delta allows (u8 or u16), or the raw u32 trim when deltas need
+    more than 16 bits; every copy is started before the first is waited
+    on. Returns the u32 matrices on the host."""
+    pending, wire = [], []
+    for o, oc_h, md_h in zip(outs, ocs, mds):
+        maxc = int(oc_h.max(initial=0))
+        if maxc <= 1:
+            pending.append(_start_host_copy([o[:, :1]]))
+            wire.append(False)
+        elif int(md_h) < (1 << 16):
+            f, dd = _wire_pack_step(o, 8 if int(md_h) < 256 else 16)
+            pending.append(_start_host_copy([f, dd[:, : maxc - 1]]))
+            wire.append(True)
+        else:
+            pending.append(_start_host_copy([o[:, :maxc]]))
+            wire.append(False)
+    hosts = []
+    for p, w in zip(pending, wire):
+        h = _finish_host_copy(p)
+        if w:
+            dd = h[1] if h[1].dtype == np.uint8 else h[1].view(np.uint16)
+            hosts.append(_wire_unpack(h[0].view(np.uint32), dd))
+        else:
+            hosts.append(h[0].view(np.uint32))
+    return hosts
+
+
 def _empty_result(columnar: bool, P: int):
     if not columnar:
         return []
@@ -480,7 +510,7 @@ class StagedStreamsMixin:
             oc_h, md_h = _finish_host_copy(d[3])
             ocs.append(oc_h)
             mds.append(md_h)
-        outs = self._wire_fetch(dispatches, ocs, mds)
+        outs = _wire_fetch([d[1] for d in dispatches], ocs, mds)
         rows: List[Optional[np.ndarray]] = [None] * nq
         for (batch, _, _, _), oc, o in zip(dispatches, ocs, outs):
             for j, qi in enumerate(batch):
@@ -489,35 +519,6 @@ class StagedStreamsMixin:
         for qi, v in singles.items():
             rows[qi] = v
         return rows
-
-    @staticmethod
-    def _wire_fetch(dispatches, ocs, mds):
-        """Second copy of a full-result harvest: per dispatch, the
-        delta-packed plane at the width its masked max delta allows (u8 or
-        u16), or the raw u32 trim when deltas need more than 16 bits; every
-        copy is started before the first is waited on."""
-        pending, wire = [], []
-        for (_, o, _, _), oc_h, md_h in zip(dispatches, ocs, mds):
-            maxc = int(oc_h.max(initial=0))
-            if maxc <= 1:
-                pending.append(_start_host_copy([o[:, :1]]))
-                wire.append(False)
-            elif int(md_h) < (1 << 16):
-                f, dd = _wire_pack_step(o, 8 if int(md_h) < 256 else 16)
-                pending.append(_start_host_copy([f, dd[:, : maxc - 1]]))
-                wire.append(True)
-            else:
-                pending.append(_start_host_copy([o[:, :maxc]]))
-                wire.append(False)
-        outs = []
-        for p, w in zip(pending, wire):
-            h = _finish_host_copy(p)
-            if w:
-                dd = h[1] if h[1].dtype == np.uint8 else h[1].view(np.uint16)
-                outs.append(_wire_unpack(h[0].view(np.uint32), dd))
-            else:
-                outs.append(h[0].view(np.uint32))
-        return outs
 
     def _resolve_concat(self, st, qk, nq):
         """(idx, found) on the device and each query's total blocks on the

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from ..codec import hashing
+from ..codec import keys as keys_mod
 from ..ops import setops
 from ..ops.concat_bool import boolean_concat_step, resolve_step
 from ..ops.cuda_bool import intersect_many
@@ -327,6 +328,24 @@ def _dedup_adjacent(v: np.ndarray) -> np.ndarray:
     m[0] = True
     np.not_equal(v[1:], v[:-1], out=m[1:])
     return v[m]
+
+
+def _pack_queries(queries, W: int):
+    """Query batch (term lists) -> (qk (Q, K, W+1) uint32, kv (Q,) int32);
+    one pack over the flattened terms."""
+    nq = len(queries)
+    kv = np.fromiter(map(len, queries), np.int32, count=nq)
+    K = max(1, int(kv.max(initial=0)))
+    qk = np.zeros((nq, K, W + 1), dtype=np.uint32)
+    packed = keys_mod.pack_terms(
+        [t for q in queries for t in q], width=W)
+    kvq = kv.astype(np.int64)
+    rows = np.repeat(np.arange(nq), kvq)
+    qoffs = np.zeros(nq + 1, dtype=np.int64)
+    np.cumsum(kvq, out=qoffs[1:])
+    cols = np.arange(qoffs[-1], dtype=np.int64) - np.repeat(qoffs[:-1], kvq)
+    qk[rows, cols] = packed
+    return qk, kv
 
 
 def _round_up(x: int, m: int) -> int:

@@ -13,9 +13,11 @@ Where the reference streams through Go iterators term-by-term (shard.go:168),
 compaction here is a vectorized array program: pack → multiword lexsort →
 group → ragged union → searchsorted tombstone mask → bulk re-encode.
 
-A copy of inverted_index_2_tpu/shard.py without its device-merge branch:
-every merge here runs merge_views on the host (native C++ or numpy). The
-torch device merge is ROADMAP queue 1 item 9.
+A copy of inverted_index_2_tpu/shard.py. A merge of DEVICE_MERGE_MIN_VALUES
+postings or more runs the device merge (ops/merge.py) on MERGE_DEVICE, the
+card unless a caller sets it to "cpu", and raises when that device is
+missing; a smaller one runs merge_views on the host (native C++ or numpy).
+Both give the same segment.
 """
 from __future__ import annotations
 
@@ -87,6 +89,13 @@ def shard_key(term: bytes) -> str:
 
 def shard_key_u16(first_two: int) -> str:
     return f"{first_two >> 6:04d}"
+
+
+# merges whose total decoded postings reach this run the device merge
+# (ops/merge.py); smaller ones stay on the host. Tune via TPI_DEVICE_MERGE_MIN.
+DEVICE_MERGE_MIN_VALUES = int(os.environ.get("TPI_DEVICE_MERGE_MIN", 2_000_000))
+# the torch device of that merge (tests set "cpu")
+MERGE_DEVICE = "cuda"
 
 
 class Shard:
@@ -295,7 +304,14 @@ class Shard:
         try:
             try:
                 views = [s.view for s in claimed]
-                out = merge_views(views, self.removed_list.values())
+                est = sum(_estimate_values(v) for v in views)
+                if est >= DEVICE_MERGE_MIN_VALUES:
+                    from .ops.merge import merge_views_device
+
+                    out = merge_views_device(views, self.removed_list.values(),
+                                             device=MERGE_DEVICE)
+                else:
+                    out = merge_views(views, self.removed_list.values())
 
                 if out is not None:
                     blob, offsets, values, voffs = out
@@ -334,6 +350,16 @@ class Shard:
             )
         return len(claimed)
 
+
+def _estimate_values(view: SegmentView) -> int:
+    """Cheap posting-count estimate for the device-vs-host merge choice."""
+    if view.mode == 1:  # direct: one value per term
+        return view.n_terms
+    # normal mode: read each term's count word (gather touches only the
+    # needed memmap pages; do NOT np.asarray the memmap — that reads the file)
+    if view.n_terms == 0:
+        return 0
+    return int(view.words[view.outs.astype(np.int64)].sum())
 
 
 def merge_views(views: List[SegmentView], removed: Optional[np.ndarray] = None):

@@ -5,7 +5,9 @@ plain torch versions, and the engine on
 CUDA against the engine on the CPU and a numpy oracle (AND, OR,
 pagination, staged lookup, and all of them with a delta tier live; range
 and prefix reads; the hybrid AND stream; a warm checkpoint start whose
-arena uploads on a side stream). The device routes are pinned
+arena uploads on a side stream); the mesh engine with two partitions on
+one card against the same on the CPU, and on two cards when there are two;
+the device merge against the host merge. The device routes are pinned
 (TPI_HOST_BOOL=0) unless a test asks for the host.
 
 Marked `gpu`: they need an NVIDIA card and nvcc and skip elsewhere. This
@@ -681,3 +683,129 @@ def test_warm_checkpoint_swaps_in_a_side_stream_upload(cuda, tmp_path,
     assert cuda_decode.decode_postings.launches > k1
     assert cuda_fused.fused_and.launches > k2
 
+
+
+# -- the mesh (parallel/) and the device merge (ops/merge.py) ---------------
+
+
+def _mesh_index(path, seed=3):
+    """A port index whose terms spread over many shards (so partitions
+    split them), with edge postings, a list past L=128 and tombstones."""
+    rng = np.random.default_rng(seed)
+    ii = InvertedIndex(str(path))
+    vocab = [bytes([a, b]) + f"t{i}".encode() for i, (a, b) in enumerate(
+        (int(x), int(y)) for x, y in rng.integers(32, 127, size=(80, 2)))]
+    edge = [0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF]
+    for doc in list(range(1, 70)) + edge:
+        k = int(rng.integers(1, 6))
+        ii.put([vocab[i] for i in rng.choice(len(vocab), size=k,
+                                             replace=False)], doc)
+    for v in range(100, 400):
+        ii.put([vocab[0], vocab[1]], v)
+    ii.put_removed(np.array([3, 7, 0x80000000], dtype=np.uint32))
+    return ii, vocab
+
+
+def _mesh_same(a, b, vocab, ctx):
+    """Two mesh engines answer every entry point alike."""
+    rng = np.random.default_rng(9)
+    terms = vocab + [b"@@missing", b"zz"]
+    queries = [[vocab[i] for i in rng.choice(len(vocab), size=int(k),
+                                             replace=False)]
+               for k in rng.integers(1, 5, size=60)]
+    queries += [[vocab[0], vocab[1]], [vocab[2], b"@@missing"]]
+    for fr in (False, True):
+        for x, y in zip(a.lookup(terms, fr), b.lookup(terms, fr)):
+            assert (x is None and y is None) or np.array_equal(x, y), ctx
+        for op in ("and", "or"):
+            for x, y in zip(a.boolean(queries, op, fr),
+                            b.boolean(queries, op, fr)):
+                assert np.array_equal(x, y), (ctx, op, fr)
+            for kw in ({"columnar": True}, {"columnar": True,
+                                            "prefix_p": 8}):
+                for x, y in zip(a.boolean_staged([queries[:30], queries[30:]],
+                                                 op, fr, **kw),
+                                b.boolean_staged([queries[:30], queries[30:]],
+                                                 op, fr, **kw)):
+                    assert all(np.array_equal(u, w) for u, w in zip(x, y))
+    for x, y in zip(a.lookup_staged([terms], columnar=True),
+                    b.lookup_staged([terms], columnar=True)):
+        assert all(np.array_equal(u, w) for u, w in zip(x, y))
+    pre = [v[:1] for v in vocab[:20]] + [b"@@"]
+    pa, pb = a.prefix_search(pre), b.prefix_search(pre)
+    assert list(pa) == list(pb)
+    assert all(np.array_equal(pa[p], pb[p]) for p in pa)
+    assert ([(t, v.tolist()) for t, v in a.read_range(None, None)]
+            == [(t, v.tolist()) for t, v in b.read_range(None, None)])
+
+
+def test_mesh_two_partitions_on_one_card_match_cpu(cuda, tmp_path):
+    """Two partitions on one card against the same two on the CPU. Most
+    queries miss on one partition, whose K1 row stays unwritten: the owner
+    select before the sum keeps that out of the answer."""
+    from inverted_index_2_tpu_torch import MeshQueryEngine
+    from inverted_index_2_tpu_torch.codec.keys import pack_terms
+    from inverted_index_2_tpu_torch.parallel import mesh as pm
+
+    ii, vocab = _mesh_index(tmp_path)
+    gpu = MeshQueryEngine(ii, mesh=[cuda, cuda], L=128)
+    cpu = MeshQueryEngine(ii, mesh=["cpu", "cpu"], L=128)
+    assert min(gpu.stats()["partition"]["n_terms_per_device"]) > 0
+    qk = pack_terms(vocab + [b"@@missing"], width=gpu.snap.width)
+    for make in (pm.make_sharded_lookup, pm.make_sharded_lookup_scatter):
+        g = make(gpu.snap, 128)(qk)
+        c = make(cpu.snap, 128)(qk)
+        for x, y in zip((g[0], g[2], g[3]), (c[0], c[2], c[3])):
+            assert torch.equal(x.cpu(), y)
+        assert _valid_equal(g[1], c[1], c[2], 128)
+    counts = {k: k.launches for k in (cuda_decode.decode_postings,
+                                      cuda_bool.intersect_many,
+                                      cuda_sort.sort_rows)}
+    _mesh_same(gpu, cpu, vocab, "main")
+    torch.cuda.synchronize()
+    for k, n in counts.items():
+        assert k.launches > n, k.__name__
+    # a delta window: the dual step on partition 0, empty partition 1
+    ii.put([vocab[0], b"new-term"], 5000)
+    ii.put([vocab[3]], 0xFFFFFFFF)
+    assert gpu.refresh(ii) and cpu.refresh(ii)
+    assert gpu.delta is not None and cpu.delta is not None
+    _mesh_same(gpu, cpu, vocab + [b"new-term"], "delta")
+
+
+def test_device_merge_cuda_matches_host(cuda, tmp_path):
+    from inverted_index_2_tpu_torch import Shard
+    from inverted_index_2_tpu_torch.ops.merge import merge_views_device
+    from inverted_index_2_tpu_torch.shard import merge_views
+
+    sh = Shard(str(tmp_path / "s"))
+    rng = np.random.default_rng(4)
+    vocab = [f"t{i:03d}".encode() for i in range(200)] + [b"", b"\xff\xff"]
+    vals = list(range(1, 400)) + [0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                                  0xFFFFFFFF]
+    for doc in vals:
+        sh.put([vocab[i] for i in rng.choice(len(vocab), size=8,
+                                             replace=False)], doc)
+    views = [s.view for s in sh.segments.snapshot()]
+    for removed in (None, np.zeros(0, np.uint32),
+                    np.array([5, 0x80000000, 0xFFFFFFFF], dtype=np.uint32)):
+        got = merge_views_device(views, removed, device=cuda)
+        want = merge_views(views, removed)
+        assert got[0] == want[0]
+        for x, y in zip(got[1:], want[1:]):
+            assert np.array_equal(x, y)
+
+
+def test_mesh_two_cards_match_one(tmp_path):
+    """Partitions on two cards (peer copies between them) against the same
+    partitions on one."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the partitions of this case sit "
+                    "on different cards")
+    from inverted_index_2_tpu_torch import MeshQueryEngine
+
+    ii, vocab = _mesh_index(tmp_path)
+    two = MeshQueryEngine(ii, mesh=["cuda:0", "cuda:1", "cuda:0", "cuda:1"],
+                          L=128)
+    one = MeshQueryEngine(ii, mesh=["cuda:0"] * 4, L=128)
+    _mesh_same(two, one, vocab, "two cards")
