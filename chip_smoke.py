@@ -100,9 +100,19 @@ Phases; any failure raises and the script exits non-zero:
      as 8 overlapping segments, 1% of the doc ids tombstoned;
      merge_views_device on the card bit-identical to merge_views, both
      timed; Shard.merge at the default threshold takes the device branch
-     and writes the segment files a host merge writes.
+     and writes the segment files a host merge writes;
+  8. the repository's entry points on the card: entry()'s step (K1, K3)
+     against the same call on the CPU, where the kernels' plain versions
+     run, on its own queries and on queries whose AND is not empty;
+     dryrun_multichip(4), four partitions on the one card, its results
+     held against numpy answers and against the same run on four CPU
+     partitions; the two examples
+     (examples/quickstart_torch.py, examples/serving_mesh_torch.py); and
+     bench_torch.py --quick, whose last line must hold every headline key
+     with a positive value and whose phases must launch the kernels they
+     stand for (its sidecar's per-phase counts).
 The last line is {"ok": true, "device": {...}}; before it come one JSON
-line with each kernel's launches (over the paths of phases 5 and 6; a
+line with each kernel's launches (over the paths of phases 5, 6 and 8; a
 ".mesh" row counts phase 6's paths alone), error, time against its plain
 version and the library call, and bound, and nvidia-smi's name and power
 limit of the card. A kernel's "ms" is one rule for every row (kernel_ms): CUDA
@@ -125,6 +135,10 @@ import tempfile
 import time
 
 import numpy as np
+
+import bench_torch
+from bench_torch import (and_oracle, env, or_oracle, uniform_stream,
+                         zipf_stream)
 
 L_MAIN = 2048
 BATCH = 8192
@@ -170,41 +184,12 @@ def check(cond, msg: str) -> None:
 
 
 def gen_corpus(n_terms: int, mean_len: int, seed: int):
-    """The bench's config-3 generator (bench.py gen_corpus): 12-byte terms,
-    geometric list lengths with the given mean, gaps 1..1999."""
-    rng = np.random.default_rng(seed)
-    raw = rng.integers(97, 123, size=(n_terms, 12), dtype=np.uint8)
-    terms_mat = np.unique(raw, axis=0)
-    n = len(terms_mat)
-    offsets = np.arange(n + 1, dtype=np.int64) * 12
-    lens = np.maximum(1, rng.geometric(1.0 / mean_len, size=n)).astype(np.int64)
-    total = int(lens.sum())
-    gaps = rng.integers(1, 2 * 1000, size=total, dtype=np.uint16)
-    voffs = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(lens, out=voffs[1:])
-    csum = np.cumsum(gaps, dtype=np.int64)
-    base = csum[np.maximum(voffs[:-1] - 1, 0)]
-    base[0] = 0
-    heads = np.zeros(total, dtype=np.int8)
-    heads[voffs[1:-1]] = 1
-    gidx = np.cumsum(heads, dtype=np.int64)
-    values = (csum - base[gidx]).astype(np.uint32)
-    return terms_mat, offsets, values, voffs
-
-
-def and_oracle(term_list, idxs):
-    out = None
-    for i in idxs:
-        v = term_list(i)
-        out = v if out is None else np.intersect1d(out, v, assume_unique=True)
-    return out
-
-
-def or_oracle(term_list, idxs):
-    out = np.zeros(0, np.uint32)
-    for i in idxs:
-        out = np.union1d(out, term_list(i))
-    return out.astype(np.uint32)
+    """The bench's config-3 generator (bench_torch.gen_corpus) with the
+    terms as a (n, 12) uint8 matrix."""
+    blob, offsets, values, voffs = bench_torch.gen_corpus(n_terms, mean_len,
+                                                          seed)
+    return (np.frombuffer(blob, np.uint8).reshape(-1, bench_torch.TERM_BYTES),
+            offsets, values, voffs)
 
 
 def gen_delta(terms_mat, values, voffs, n_delta: int, seed: int):
@@ -1451,31 +1436,6 @@ def phase_engine_small(torch, device):
           f"{len(look)} lookups, AND follow-ups {st})")
 
 
-@contextlib.contextmanager
-def env(**kw):
-    """Set (a string) or unset (None) environment variables for the block.
-    A change of TPI_LINK_MBPS drops the engine's cached link probe, on
-    entry and on exit."""
-    from inverted_index_2_tpu_torch.models import query_engine as qe
-
-    old = {k: os.environ.get(k) for k in kw}
-
-    def put(vals):
-        for k, v in vals.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        if "TPI_LINK_MBPS" in vals:
-            qe._LINK_MBPS = None
-
-    put(kw)
-    try:
-        yield
-    finally:
-        put(old)
-
-
 def device_view(torch, eng):
     """An engine over eng's serving state without the retained tables:
     the same snapshot tensors (nothing uploads again), so every read and
@@ -1794,22 +1754,6 @@ def phase_host(torch, eng, terms_mat, main_list, term_bytes, streams, qps,
     print(f"[phase 5] host route phase took {time.perf_counter() - t_phase:.4f}"
           " s")
     return prefixes, windows
-
-
-def zipf_stream(rng, n_terms, n_batches):
-    """bench.py's Zipf mix: a pool of 4096 queries of 2-8 terms drawn with
-    weight 1/rank."""
-    pool = [rng.choice(n_terms, size=int(rng.integers(2, 9)), replace=False)
-            for _ in range(4096)]
-    w = 1.0 / np.arange(1, len(pool) + 1, dtype=np.float64)
-    w /= w.sum()
-    return [[pool[i] for i in rng.choice(len(pool), size=BATCH, p=w)]
-            for _ in range(n_batches)]
-
-
-def uniform_stream(rng, n_terms, n_batches):
-    return [[rng.choice(n_terms, size=int(rng.integers(2, 9)), replace=False)
-             for _ in range(BATCH)] for _ in range(n_batches)]
 
 
 def run_stream(eng, term_list, term_bytes, stream, name, op="and",
@@ -2457,6 +2401,109 @@ def phase_merge(torch, seed, device="cuda"):
           f"{time.perf_counter() - t_phase:.4f} s")
 
 
+# bench_torch.py --quick: the kernels each phase must launch (its sidecar's
+# per-phase counts)
+BENCH_KERNELS = {"query": ("K1", "K3", "K4"),
+                 "postlen1k": ("K1", "K2", "K3", "K4"),
+                 "api_postlen1k": ("K2", "K4"),
+                 "mesh": ("K1", "K3"),
+                 "api": ("K2", "K4"),
+                 "scale": ("K1", "K2", "K4")}
+
+
+def _run_script(args, label, timeout=300):
+    """Run a script of the repository with this interpreter; its stdout
+    lines. Fails the phase on a non-zero exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], capture_output=True,
+                         text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, f"{label} exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    print(f"[phase 8] {label}: exit 0 in {time.perf_counter() - t0:.4f} s, "
+          f"last line {lines[-1][:160]!r}")
+    return lines, res.stderr
+
+
+def phase_entry(torch, drive):
+    """Phase 8: the entry points on the card. entry()'s step, then the same
+    call on CPU copies of its inputs, where each kernel wrapper runs its
+    plain version: equal counts and need, equal valid prefixes; the same on
+    queries whose AND is not empty (a term repeated, 1-4 slots live).
+    Then dryrun_multichip(4), which holds its results against numpy
+    answers, and its results against the same run on four CPU partitions;
+    both examples; bench_torch.py --quick."""
+    import functools
+
+    from inverted_index_2_tpu_torch import entry
+    from inverted_index_2_tpu_torch.codec import keys as K
+    from inverted_index_2_tpu_torch.utils.u32 import to_device, to_numpy_u32
+
+    t_phase = time.perf_counter()
+    fn, args = entry.entry()
+    check(all(a.device.type == "cuda" for a in args),
+          "entry() left an argument off the card")
+    plain = functools.partial(fn.func, **{**fn.keywords,
+                                          "slots": fn.keywords["slots"].cpu()})
+    terms_blob, toffs = K.unpack_keys(to_numpy_u32(args[0][:64]))
+    terms = [terms_blob[toffs[i]:toffs[i + 1]].tobytes() for i in range(64)]
+    qk = np.stack([K.pack_terms([t] * 4, width=int(args[0].shape[1]) - 1)
+                   for t in terms])
+    kv = (np.arange(64) % 4 + 1).astype(np.int32)
+    cases = {"entry": args[4:],
+             "overlapping": (to_device(qk, "cuda"), to_device(kv, "cuda"))}
+    for name, (q, k) in cases.items():
+        out, oc, need = drive(f"entry {name}",
+                              lambda: fn(*args[:4], q, k))
+        p_out, p_oc, p_need = plain(*(a.cpu() for a in args[:4]), q.cpu(),
+                                    k.cpu())
+        oc_h = oc.cpu()
+        check(torch.equal(oc_h, p_oc) and torch.equal(need.cpu(), p_need),
+              f"entry step ({name}): counts or need differ from the plain "
+              "versions")
+        o, po = to_numpy_u32(out), to_numpy_u32(p_out)
+        for i in range(len(oc_h)):
+            c = int(oc_h[i])
+            check(np.array_equal(o[i, :c], po[i, :c]),
+                  f"entry step ({name}): row {i} differs")
+        print(f"[phase 8] entry step ({name}): {len(oc_h)} queries, "
+              f"{int((oc_h > 0).sum())} non-empty, equal to the plain "
+              "versions")
+    # the dry run holds each result against numpy answers itself; the card's
+    # results must also equal those of the same run on four CPU partitions
+    # (the plain versions)
+    t0 = time.perf_counter()
+    card = drive("dryrun", lambda: entry.dryrun_multichip(4))
+    t_card = time.perf_counter() - t0
+    plain_res = entry.dryrun_multichip(4, device="cpu")
+    check(entry.same_results(card, plain_res), "dryrun_multichip(4): the "
+          "card's results differ from the CPU partitions'")
+    print(f"[phase 8] dryrun_multichip(4) on one card passed in "
+          f"{t_card:.4f} s, its numpy answers held and its "
+          f"{sum(len(v) for v in card.values())} result rows "
+          f"({', '.join(card)}) equal to the run on four CPU partitions")
+    _run_script(["examples/quickstart_torch.py"], "quickstart_torch.py")
+    _run_script(["examples/serving_mesh_torch.py"], "serving_mesh_torch.py")
+    lines, err = _run_script(["bench_torch.py", "--quick"],
+                             "bench_torch.py --quick")
+    head = json.loads(lines[-1])
+    missing = [k for k in bench_torch.HEADLINE_KEYS
+               if not head.get(bench_torch.PREFIX + k, 0) > 0]
+    check(not missing, f"bench --quick: headline keys absent or not "
+          f"positive: {missing}")
+    with open(bench_torch.DETAILS_PATH) as f:
+        side = json.load(f)
+    for ph, kernels in BENCH_KERNELS.items():
+        got = side["phase_launches"][ph]
+        check(all(got[k] > 0 for k in kernels),
+              f"bench --quick: phase {ph} launched {got}, wants {kernels}")
+    print(f"[phase 8] bench --quick: {len(bench_torch.HEADLINE_KEYS)} "
+          f"headline keys positive; launches by phase "
+          f"{side['phase_launches']}; phase seconds {side['phase_s']}")
+    print(f"[phase 8] took {time.perf_counter() - t_phase:.4f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--terms", type=int, default=200_000,
@@ -2499,8 +2546,8 @@ def main(argv=None) -> int:
 
     eng, terms_mat, values, voffs = phase_main(torch, args)
     rng = np.random.default_rng(args.seed + 1)
-    uniform = uniform_stream(rng, len(terms_mat), N_BATCHES)
-    zipf = zipf_stream(rng, len(terms_mat), N_BATCHES)
+    uniform = uniform_stream(rng, len(terms_mat), N_BATCHES, BATCH)
+    zipf = zipf_stream(rng, len(terms_mat), N_BATCHES, BATCH)
     term_bytes = [terms_mat[i].tobytes() for i in range(len(terms_mat))]
     uniform_b = [[[term_bytes[i] for i in q] for q in b] for b in uniform[:1]]
 
@@ -2617,8 +2664,9 @@ def main(argv=None) -> int:
     # needs the delta's lists and runs here
     delta = phase_delta_setup(torch, eng, terms_mat, values, voffs,
                               term_bytes, args.seed + 5)
-    d_uniform = uniform_stream(rng, delta["n_terms"], N_DUAL_BATCHES)
-    d_zipf = zipf_stream(rng, delta["n_terms"], N_DUAL_BATCHES)
+    d_uniform = uniform_stream(rng, delta["n_terms"], N_DUAL_BATCHES,
+                               BATCH)
+    d_zipf = zipf_stream(rng, delta["n_terms"], N_DUAL_BATCHES, BATCH)
     d_uniform_b = [[[delta["term_bytes"][i] for i in q] for q in b]
                    for b in d_uniform]
     kern["decode_postings.found"] = phase_decode_dual(
@@ -2633,7 +2681,8 @@ def main(argv=None) -> int:
     kern.update(phase_mesh(torch, eng, terms_mat, values, voffs, term_bytes,
                            uniform, main_list, drive, reads, args.seed))
     phase_merge(torch, args.seed)
-    print(f"[phases 5-6] kernel launches per path {per_path}; total "
+    phase_entry(torch, drive)
+    print(f"[phases 5-8] kernel launches per path {per_path}; total "
           f"{launches}")
     concat = ("sort_rows.runs",)
     dual = ("decode_postings", "sort_rows.two_run", "sort_rows.compact")
@@ -2652,7 +2701,11 @@ def main(argv=None) -> int:
             ("dual lookup", ("decode_postings",)),
             ("hybrid and uniform", ("fused_and", "fused_and.width")),
             ("device prefix", ("decode_postings",)),
-            ("device range", ("decode_postings",))) + tuple(
+            ("device range", ("decode_postings",)),
+            ("entry entry", ("decode_postings", "intersect_many")),
+            ("entry overlapping", ("decode_postings", "intersect_many")),
+            ("dryrun", ("decode_postings", "intersect_many",
+                        "sort_rows.runs", "sort_rows.compact"))) + tuple(
                 (f"mesh{D} {p}", names) for D in MESH_DS
                 for p, names in (
                     ("lookup", ("decode_postings",)),
