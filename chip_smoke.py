@@ -110,10 +110,27 @@ Phases; any failure raises and the script exits non-zero:
      (examples/quickstart_torch.py, examples/serving_mesh_torch.py); and
      bench_torch.py --quick, whose last line must hold every headline key
      with a positive value and whose phases must launch the kernels they
-     stand for (its sidecar's per-phase counts).
+     stand for (its sidecar's per-phase counts);
+  9. the write-while-serving lifecycle at the phase-5 size
+     (phase_lifecycle): the corpus written as the segment files of an
+     InvertedIndex (two overlapping segments a shard), served by
+     QueryEngine.from_index with a checkpoint_path and by a MeshQueryEngine
+     of 4 partitions of the card started from that checkpoint; reader
+     threads serve AND, OR pages, lookup_staged and read_range on the
+     device routes, and AND through the mesh, holding the storm's
+     invariants (no id whose tombstone refresh returned comes back, no id
+     whose put and refresh returned is lost), while a writer puts
+     (put_many), removes (put_removed) and merges, and refresh() takes
+     each of its kinds, timed: an additive delta, tombstones only, a
+     promotion past DELTA_FRACTION and a rebuild after the merge; after
+     each refresh, readers paused, sampled queries of every form on both
+     routes equal a numpy oracle of the index's host reads and the mesh
+     equals the single engine; K1-K4 must each launch; prints the
+     readers' QPS with the writer idle and in the storm, their slowest
+     call, and max_memory_allocated across the promotion and the rebuild.
 The last line is {"ok": true, "device": {...}}; before it come one JSON
-line with each kernel's launches (over the paths of phases 5, 6 and 8; a
-".mesh" row counts phase 6's paths alone), error, time against its plain
+line with each kernel's launches (over the paths of phases 5, 6, 8 and 9;
+a ".mesh" row counts phase 6's paths alone), error, time against its plain
 version and the library call, and bound, and nvidia-smi's name and power
 limit of the card. A kernel's "ms" is one rule for every row (kernel_ms): CUDA
 events around each call alone, made with the L2 emptied and the host's
@@ -125,6 +142,7 @@ CUDA events over back-to-back calls.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import json
 import math
@@ -132,6 +150,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2504,6 +2523,801 @@ def phase_entry(torch, drive):
     print(f"[phase 8] took {time.perf_counter() - t_phase:.4f} s")
 
 
+# phase 9: the write-while-serving lifecycle at the config-3 size
+LIFE_DOCS = 4096        # documents of a put round
+LIFE_SENTINEL = 8       # of them carrying GROW, and as many carrying VICTIM
+LIFE_REMOVE = 256       # ids a tombstone round removes
+LIFE_SAMPLE = 512       # sampled queries a form at each quiet state
+LIFE_IDLE_S = 8.0       # the readers' window with the writer idle
+LIFE_D = 4              # mesh partitions on the one card
+LIFE_WINDOW = 1024      # corpus terms in the range reader's window
+# the sentinel terms: GROW's documents are never removed (no published one
+# may go missing); VICTIM's are removed each round (none may come back)
+GROW = b"zz-life-grow"
+VICTIM = b"zz-life-victim"
+# the writer's rounds, (what it puts, whether it ends with a merge): each
+# puts and refreshes, removes and refreshes; round 1 puts past
+# DELTA_FRACTION (a promotion), round 2 merges and refreshes (a rebuild)
+LIFE_ROUNDS = (("docs", False), ("promote", False), ("docs", True))
+
+
+def _same(a, b) -> bool:
+    """Equal results: arrays, None, bytes, and lists, tuples and dicts of
+    them, compared element by element."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _same(x, y) for x, y in zip(a, b))
+    if a is None or b is None or isinstance(a, bytes):
+        return a == b
+    return np.array_equal(a, b)
+
+
+def _shard_of(term: bytes) -> int:
+    """The index's shard of a term (shard.shard_key as an int)."""
+    return ((term[0] << 8) | term[1]) >> 6 if len(term) >= 2 else 0
+
+
+class LifeModel:
+    """Phase 9's numpy oracle: the postings every term has in the index's
+    host reads (the corpus, every put, and each merge's purge, in the
+    shards it merged, of the tombstones put before it). Term ids: corpus
+    term i is i, later terms follow in the order they were first put."""
+
+    def __init__(self, terms_mat, values, voffs):
+        self.values, self.voffs = values, voffs
+        self.n_corpus = len(terms_mat)
+        self.terms = [terms_mat[i].tobytes() for i in range(self.n_corpus)]
+        self.ids = {t: i for i, t in enumerate(self.terms)}
+        self.shards = [_shard_of(t) for t in self.terms]
+        self.added = {}        # term id -> arrays of put ids
+        self.tombs = []        # tombstone batches, in order
+        self.merged_at = {}    # shard -> tombstone batches its merge purged
+        self._purged = {0: np.zeros(0, np.uint32)}
+        self.docs = []         # (doc ids, term-id offsets, term ids) a put
+
+    def term_id(self, t: bytes) -> int:
+        i = self.ids.get(t)
+        if i is None:
+            i = self.ids[t] = len(self.terms)
+            self.terms.append(t)
+            self.shards.append(_shard_of(t))
+        return i
+
+    def put(self, doc_ids, doc_terms):
+        offs = np.zeros(len(doc_terms) + 1, dtype=np.int64)
+        np.cumsum([len(d) for d in doc_terms], out=offs[1:])
+        tids = np.concatenate(doc_terms).astype(np.int64)
+        self.docs.append((np.asarray(doc_ids, np.uint32), offs, tids))
+        pairs = np.unique(np.stack([tids, np.repeat(
+            np.asarray(doc_ids, np.int64), np.diff(offs))], axis=1), axis=0)
+        cuts = np.flatnonzero(np.diff(pairs[:, 0])) + 1
+        for grp in np.split(pairs, cuts):
+            self.added.setdefault(int(grp[0, 0]), []).append(
+                grp[:, 1].astype(np.uint32))
+
+    def remove(self, ids):
+        self.tombs.append(np.unique(np.asarray(ids, np.uint32)))
+
+    def merged(self, shards):
+        for s in shards:
+            self.merged_at[s] = len(self.tombs)
+
+    def _purge(self, k: int) -> np.ndarray:
+        if k not in self._purged:
+            self._purged[k] = np.unique(np.concatenate(self.tombs[:k]))
+        return self._purged[k]
+
+    def postings(self, i: int) -> np.ndarray:
+        parts = self.added.get(i, [])
+        if i < self.n_corpus:
+            parts = [self.values[self.voffs[i]:self.voffs[i + 1]]] + parts
+        if not parts:
+            return np.zeros(0, np.uint32)
+        v = np.unique(np.concatenate(parts)) if len(parts) > 1 else parts[0]
+        k = self.merged_at.get(self.shards[i], 0)
+        return v[~np.isin(v, self._purge(k))] if k else v
+
+    def doc_query(self, rng):
+        """The terms of one document put earlier (its AND holds the doc)."""
+        ids, offs, tids = self.docs[int(rng.integers(len(self.docs)))]
+        j = int(rng.integers(len(ids)))
+        return np.unique(tids[offs[j]:offs[j + 1]])
+
+
+def life_put(rng, model, n_docs, first_id, weights=None, n_promote=0):
+    """One round's documents: (doc ids, term-id arrays, term bytes lists).
+    n_promote = 0: n_docs documents of 2-8 terms drawn by `weights` (rank
+    Zipf over the corpus), 1% of the draws new terms; else n_promote
+    distinct corpus terms, 4 a document. The first LIFE_SENTINEL documents
+    also carry GROW, the next LIFE_SENTINEL VICTIM."""
+    if n_promote:
+        perm = rng.permutation(model.n_corpus)[:n_promote]
+        doc_terms = [perm[i:i + 4] for i in range(0, n_promote, 4)]
+    else:
+        k = rng.integers(2, 9, size=n_docs)
+        draws = rng.choice(model.n_corpus, size=int(k.sum()), p=weights)
+        fresh = np.flatnonzero(rng.random(len(draws)) < 0.01)
+        n_new = max(1, len(fresh) // 2)
+        new_ids = []
+        while len(new_ids) < n_new:
+            t = rng.integers(97, 123, size=12, dtype=np.uint8).tobytes()
+            if t not in model.ids:
+                new_ids.append(model.term_id(t))
+        draws[fresh] = rng.choice(new_ids, size=len(fresh))
+        doc_terms = np.split(draws, np.cumsum(k)[:-1])
+    g, v = model.term_id(GROW), model.term_id(VICTIM)
+    doc_terms = [np.append(d, g) if j < LIFE_SENTINEL else
+                 np.append(d, v) if j < 2 * LIFE_SENTINEL else d
+                 for j, d in enumerate(doc_terms)]
+    ids = np.arange(first_id, first_id + len(doc_terms), dtype=np.uint32)
+    docs = [([model.terms[t] for t in d], int(i))
+            for d, i in zip(doc_terms, ids)]
+    return ids, doc_terms, docs
+
+
+class _Gate:
+    """Readers pass it before each batch; the writer closes it and waits
+    until no batch is in flight (a quiet state), then opens it again."""
+
+    def __init__(self):
+        self.cv = threading.Condition()
+        self.open = True
+        self.busy = 0
+
+    def enter(self):
+        with self.cv:
+            while not self.open:
+                self.cv.wait()
+            self.busy += 1
+
+    def leave(self):
+        with self.cv:
+            self.busy -= 1
+            self.cv.notify_all()
+
+    def close(self):
+        with self.cv:
+            self.open = False
+            while self.busy:
+                self.cv.wait()
+
+    def reopen(self):
+        with self.cv:
+            self.open = True
+            self.cv.notify_all()
+
+
+class _Timers:
+    """Seconds spent in named functions of the refresh paths, summed until
+    take(); the functions are wrapped where the engines look them up and
+    unwrapped by restore()."""
+
+    def __init__(self, targets):
+        self.spent = {}
+        self._orig = []
+        for mod, attr, name in targets:
+            fn = getattr(mod, attr)
+            self._orig.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(fn, name))
+
+    def _wrap(self, fn, name):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.spent[name] = (self.spent.get(name, 0.0)
+                                    + time.perf_counter() - t0)
+        return timed
+
+    def take(self):
+        out, self.spent = self.spent, {}
+        return {k: round(v, 4) for k, v in out.items()}
+
+    def restore(self):
+        for mod, attr, fn in self._orig:
+            setattr(mod, attr, fn)
+
+
+def write_life_corpus(d, terms_mat, values, voffs, seed):
+    """The corpus as the segment files of an InvertedIndex at `d`: each
+    shard's postings in two overlapping segments (each posting in one of
+    them at random, a tenth in both), written by the port's segment
+    writer from numpy arrays. Returns the shards' posting counts."""
+    from inverted_index_2_tpu_torch.segment import writer as seg_writer
+
+    rng = np.random.default_rng(seed)
+    shard = (terms_mat[:, 0].astype(np.int64) << 2) | (
+        terms_mat[:, 1].astype(np.int64) >> 6)
+    # terms ascend, so a shard's terms, and their postings, are contiguous
+    cuts = np.flatnonzero(np.diff(shard)) + 1
+    t_lo = np.concatenate([[0], cuts])
+    t_hi = np.concatenate([cuts, [len(shard)]])
+    sizes = {}
+    for a, b in zip(t_lo, t_hi):
+        lo, hi = int(voffs[a]), int(voffs[b])
+        counts = np.diff(voffs[a:b + 1])
+        term_of = np.repeat(np.arange(a, b), counts)
+        which = rng.random(hi - lo) < 0.5
+        both = rng.random(hi - lo) < 0.1
+        sd = os.path.join(d, f"{int(shard[a]):04d}")
+        os.makedirs(sd)
+        for side in (False, True):
+            sel = (which == side) | both
+            live, cnt = np.unique(term_of[sel], return_counts=True)
+            sv = np.zeros(len(live) + 1, dtype=np.int64)
+            np.cumsum(cnt, out=sv[1:])
+            seg_writer.write_normal_segment(
+                sd, terms_mat[live].tobytes(),
+                np.arange(len(live) + 1, dtype=np.int64) * 12,
+                values[lo:hi][sel], sv)
+        sizes[int(shard[a])] = hi - lo
+    return sizes
+
+
+def phase_lifecycle(torch, terms_mat, values, voffs, seed, device="cuda",
+                    mesh=None):
+    """Phase 9: the write-while-serving lifecycle at the config-3 size. The
+    corpus (terms_mat, values, voffs) goes to disk as the segments of an
+    InvertedIndex (write_life_corpus), served by QueryEngine.from_index
+    (with a checkpoint_path, so every main rebuild saves it) and by a
+    MeshQueryEngine of LIFE_D partitions started from that checkpoint.
+    Reader threads serve all the while: boolean_staged AND (columnar, two
+    batches of BATCH, filter_removed) and OR pages (prefix_p = PAGE_P),
+    lookup_staged and read_range on the device route, and one reader
+    through the mesh engine; each holds the storm's invariants (no id
+    whose tombstone refresh has returned comes back; no id whose put and
+    refresh have returned is lost). A writer thread runs LIFE_ROUNDS:
+    put_many, refresh (a delta; round 1 puts past DELTA_FRACTION: a
+    promotion), put_removed, refresh (tombstones only), and in round 2 a
+    merge-until-zero, refresh (a rebuild). After every refresh, with the
+    readers paused, LIFE_SAMPLE sampled queries of every form, with and
+    without the tombstone filter, on the device route and on auto, equal
+    a numpy oracle of the index's host reads (LifeModel), and the mesh
+    engine's answers equal the single engine's. Returns the refresh kinds
+    of both engines and the readers' QPS (writer idle, storm)."""
+    import inverted_index_2_tpu_torch.shard as shard_mod
+    from inverted_index_2_tpu_torch import (InvertedIndex, MeshQueryEngine,
+                                            QueryEngine, to_slice)
+    from inverted_index_2_tpu_torch.models import query_engine as qe_mod
+    from inverted_index_2_tpu_torch.models import snapshot as snap_mod
+    from inverted_index_2_tpu_torch.models.checkpoint import (
+        load_checkpoint, load_fingerprint)
+    from inverted_index_2_tpu_torch.models.snapshot import _collect_removed
+    from inverted_index_2_tpu_torch.ops import merge as merge_mod
+    from inverted_index_2_tpu_torch.parallel import mesh as pm
+
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    model = LifeModel(terms_mat, values, voffs)
+    n_main = model.n_corpus
+    weights = 1.0 / (1 + rng.permutation(n_main))  # rank Zipf, s = 1
+    weights /= weights.sum()
+
+    def say(msg):
+        print(f"[phase 9] {msg}")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        sizes = write_life_corpus(os.path.join(d, "index"), terms_mat,
+                                  values, voffs, seed)
+        t_write = time.perf_counter() - t0
+        ii = InvertedIndex(os.path.join(d, "index"))
+        ckpt = os.path.join(d, "serving.ckpt")
+        t0 = time.perf_counter()
+        eng = QueryEngine.from_index(ii, L=L_MAIN, device=device,
+                                     checkpoint_path=ckpt)
+        t_build = time.perf_counter() - t0
+        eng.checkpoint_wait()
+        t0 = time.perf_counter()
+        meng = MeshQueryEngine.from_checkpoint(
+            ckpt, index=ii, L=L_MAIN,
+            mesh=mesh if mesh is not None else pm.default_mesh(LIFE_D))
+        t_mesh = time.perf_counter() - t0
+        big = sum(n >= shard_mod.DEVICE_MERGE_MIN_VALUES
+                  for n in sizes.values())
+        say(f"corpus: {n_main} terms, {len(values)} postings in "
+            f"{len(sizes)} shards of {min(sizes.values())}-"
+            f"{max(sizes.values())} postings, two overlapping segments a "
+            f"shard, written in {t_write:.4f} s; {big} of them at or "
+            f"above TPI_DEVICE_MERGE_MIN "
+            f"({shard_mod.DEVICE_MERGE_MIN_VALUES}): their merges take the "
+            f"device branch, the others the host's; from_index "
+            f"{t_build:.4f} s, MeshQueryEngine.from_checkpoint at D = "
+            f"{len(meng.mesh)} {t_mesh:.4f} s")
+
+        # the readers' batches; GROW and VICTIM lead each
+        model.term_id(GROW)
+        model.term_id(VICTIM)
+        tb = model.terms
+        and_b = [[[GROW], [VICTIM]] + [[tb[i] for i in q] for q in b[2:]]
+                 for b in uniform_stream(rng, n_main, 2, BATCH)]
+        or_b = [[[GROW], [VICTIM]] + [[tb[i] for i in q] for q in b[2:]]
+                for b in uniform_stream(rng, n_main, 2, BATCH)]
+        lk_b = [[GROW, VICTIM] + [tb[i] for i in rng.choice(n_main,
+                                                            BATCH - 2)]
+                for _ in range(2)]
+        w0 = int(rng.integers(0, n_main - LIFE_WINDOW))
+        window = (tb[w0], tb[w0 + LIFE_WINDOW - 1])
+
+        lock = threading.Lock()
+        ban = np.zeros(0, np.uint32)       # removed and refreshed
+        grown = np.zeros(0, np.uint32)     # GROW ids put and refreshed
+        gate, done, failed = _Gate(), threading.Event(), []
+        log = {}                           # reader -> (t0, seconds, n)
+
+        def no_banned(name, vals, banned):
+            bad = np.isin(vals, banned)
+            check(not bad.any(), f"phase 9 {name}: removed ids came back: "
+                  f"{vals[bad][:8].tolist()}")
+
+        def has_grown(name, row, want):
+            lost = np.setdiff1d(want, row)
+            check(not len(lost), f"phase 9 {name}: published ids lost: "
+                  f"{lost[:8].tolist()}")
+
+        busy = []  # the router's load signal, read by the AND reader
+
+        def serve_and(banned, want):
+            busy.append(eng._host_busy())
+            out = eng.boolean_staged(and_b, "and", True, columnar=True)
+            for vals, vo in out:
+                no_banned("AND reader", vals, banned)
+                has_grown("AND reader", vals[vo[0]:vo[1]], want)
+            return sum(len(b) for b in and_b)
+
+        def serve_pages(banned, want):
+            out = eng.boolean_staged(or_b, "or", True, columnar=True,
+                                     prefix_p=PAGE_P)
+            for vals, vo, cnt in out:
+                no_banned("OR-page reader", vals, banned)
+                check(cnt[0] >= len(want), "phase 9 OR-page reader: GROW "
+                      f"counts {cnt[0]} of {len(want)} published ids")
+            return sum(len(b) for b in or_b)
+
+        def serve_lookup(banned, want):
+            out = device_view(torch, eng).lookup_staged(lk_b, True,
+                                                        columnar=True)
+            for vals, vo in out:
+                no_banned("lookup_staged reader", vals, banned)
+                has_grown("lookup_staged reader", vals[vo[0]:vo[1]], want)
+            return sum(len(b) for b in lk_b)
+
+        def serve_range(banned, want):
+            view = device_view(torch, eng)
+            rows = list(view.read_range(*window))
+            g = [v for t, v in view.read_range(GROW, GROW) if t == GROW]
+            has_grown("range reader", g[0] if g else np.zeros(0, np.uint32),
+                      want)
+            return len(rows) + 1
+
+        def serve_mesh(banned, want):
+            (vals, vo), = meng.boolean_staged(and_b[:1], "and", True,
+                                              columnar=True)
+            no_banned("mesh reader", vals, banned)
+            has_grown("mesh reader", vals[vo[0]:vo[1]], want)
+            v, g = meng.lookup([VICTIM, GROW], filter_removed=True)
+            no_banned("mesh reader", np.zeros(0, np.uint32) if v is None
+                      else v, banned)
+            has_grown("mesh reader", g, want)
+            return len(and_b[0]) + 2
+
+        readers = {"and": serve_and, "or pages": serve_pages,
+                   "lookup_staged": serve_lookup, "read_range": serve_range,
+                   "mesh and": serve_mesh}
+
+        def reader(name, serve):
+            try:
+                while not done.is_set():
+                    gate.enter()
+                    try:
+                        with lock:
+                            banned, want = ban, grown
+                        t0 = time.perf_counter()
+                        n = serve(banned, want)
+                        log[name].append((t0, time.perf_counter() - t0, n))
+                    finally:
+                        gate.leave()
+            except BaseException as e:
+                failed.append((name, e))
+                done.set()
+
+        # -- the quiet-state oracle -------------------------------------
+        qrng = np.random.default_rng(seed + 1)
+
+        def sample_queries():
+            U = len(model.terms)
+            half = LIFE_SAMPLE // 2
+            uni = [qrng.choice(U, size=int(qrng.integers(2, 9)),
+                               replace=False) for _ in range(LIFE_SAMPLE)]
+            ands = uni[:half] + ([model.doc_query(qrng) for _ in
+                                  range(LIFE_SAMPLE - half)]
+                                 if model.docs else uni[half:])
+            look = list(qrng.choice(U, size=LIFE_SAMPLE - 3))
+            look += [model.term_id(GROW), model.term_id(VICTIM)]
+            pref = sorted({model.terms[int(i)][:3] for i in
+                           qrng.choice(U, size=LIFE_SAMPLE)})
+            return ands, uni, look, pref
+
+        def quiet(stage):
+            gate.close()
+            t0 = time.perf_counter()
+            try:
+                if failed:
+                    raise SmokeError(f"phase 9: a reader failed: {failed[0]}")
+                n = life_check(stage)
+            finally:
+                gate.reopen()
+            return time.perf_counter() - t0, n
+
+        spent = {}  # quiet-state seconds by part
+
+        @contextlib.contextmanager
+        def part(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+
+        def life_check(stage):
+            with part("sample"):
+                ands, ors, look, pref = sample_queries()
+            removed = _collect_removed(ii)
+            memo = {}
+            with part("sample"):
+                order = sorted(range(len(model.terms)),
+                               key=model.terms.__getitem__)
+                sorted_terms = [model.terms[i] for i in order]
+
+            def want(i, fr):
+                i = int(i)
+                if i not in memo:
+                    memo[i] = model.postings(i)
+                v = memo[i]
+                return v[~np.isin(v, removed)] if fr else v
+
+            def qb(qs):
+                return [[model.terms[int(i)] for i in q] for q in qs]
+
+            def oracle(q, op):
+                """(unfiltered, filtered) answers of query q."""
+                if op == "and":
+                    out = want(q[0], False)
+                    for i in q[1:]:
+                        out = np.intersect1d(out, want(i, False),
+                                             assume_unique=True)
+                else:
+                    out = np.unique(np.concatenate(
+                        [want(i, False) for i in q]))
+                out = out.astype(np.uint32)
+                return out, out[~np.isin(out, removed)]
+
+            def same_rows(name, vals, vo, wants, counts=None):
+                check(len(vo) == len(wants) + 1, f"{stage}: {name} shape")
+                for j, w in enumerate(wants):
+                    if counts is not None:
+                        check(counts[j] == len(w),
+                              f"{stage}: {name} query {j} count")
+                        w = w[:PAGE_P]
+                    check(np.array_equal(vals[vo[j]:vo[j + 1]], w),
+                          f"{stage}: {name} query {j} differs from the "
+                          "oracle")
+
+            and_q, or_q, lk_t = qb(ands), qb(ors), [model.terms[int(i)]
+                                                   for i in look]
+            lk_t.append(b"zz-life-missing")
+            with part("oracle"):
+                w = {}
+                for op, qs in (("and", ands), ("or", ors)):
+                    both = [oracle(q, op) for q in qs]
+                    w[op, False] = [a for a, _ in both]
+                    w[op, True] = [b for _, b in both]
+                for fr in (False, True):
+                    w["lookup", fr] = [want(i, fr) for i in look] + [
+                        np.zeros(0, np.uint32)]
+                # reads do not filter
+                lo = bisect.bisect_left(sorted_terms, window[0])
+                hi = bisect.bisect_right(sorted_terms, window[1])
+                w_range = [(sorted_terms[j], want(order[j], False))
+                           for j in range(lo, hi)]
+                w_range = [(t, v) for t, v in w_range if len(v)]
+                w_pref = {}
+                for p in pref:
+                    lo = bisect.bisect_left(sorted_terms, p)
+                    hi = bisect.bisect_left(sorted_terms, p + b"\xff" * 16)
+                    vs = [want(order[j], False) for j in range(lo, hi)]
+                    vs = [v for v in vs if len(v)]
+                    if vs:
+                        w_pref[p] = np.unique(np.concatenate(vs))
+            with part("host read"):
+                host = [(tv.term, tv.values) for tv in
+                        to_slice(ii.read(*window))]
+            check(_same(host, w_range),
+                  f"{stage}: the oracle differs from the index's host read")
+            single = {}
+            for route in ("0", "auto"):
+                with env(TPI_HOST_BOOL=route):
+                    view = eng if route == "auto" else device_view(torch,
+                                                                   eng)
+                    for fr in (False, True):
+                        tag = f"route={route} fr={fr}"
+                        with part("AND"):
+                            (v, vo), = eng.boolean_staged(
+                                [and_q], "and", fr, columnar=True)
+                        same_rows(f"AND {tag}", v, vo, w["and", fr])
+                        single["and", fr] = (v, vo)
+                        with part("OR"):
+                            (v, vo), = eng.boolean_staged(
+                                [or_q], "or", fr, columnar=True)
+                        same_rows(f"OR {tag}", v, vo, w["or", fr])
+                        with part("OR pages"):
+                            (v, vo, c), = eng.boolean_staged(
+                                [or_q], "or", fr, columnar=True,
+                                prefix_p=PAGE_P)
+                        same_rows(f"OR pages {tag}", v, vo, w["or", fr], c)
+                        single["pages", fr] = (v, vo, c)
+                        with part("lookup"):
+                            got = eng.lookup(lk_t, filter_removed=fr)
+                        for j, x in enumerate(w["lookup", fr]):
+                            g = got[j]
+                            check(not len(x) if g is None
+                                  else np.array_equal(g, x),
+                                  f"{stage}: lookup {tag} term {lk_t[j]!r}")
+                        single["lookup", fr] = got
+                        with part("lookup_staged"):
+                            (v, vo), = view.lookup_staged([lk_t], fr,
+                                                          columnar=True)
+                        same_rows(f"lookup_staged {tag}", v, vo,
+                                  w["lookup", fr])
+                        single["lookup_staged", fr] = (v, vo)
+                    with part("read_range"):
+                        rows = list(view.read_range(*window))
+                    check(_same(rows, w_range), f"{stage}: read_range "
+                          f"route={route} differs from the oracle")
+                    single["range"] = rows
+                    with part("prefix_search"):
+                        got = view.prefix_search(pref)
+                    check(_same(got, w_pref), f"{stage}: prefix_search "
+                          f"route={route} differs from the oracle")
+                    single["prefix"] = got
+            n_checked = 2 * (2 * (4 * LIFE_SAMPLE + len(lk_t)) + len(w_range)
+                             + len(pref))
+            # the mesh engine against the single engine, bit for bit
+            with part("mesh"):
+                mesh_same(stage, and_q, or_q, lk_t, pref, single)
+            return n_checked
+
+        def mesh_same(stage, and_q, or_q, lk_t, pref, single):
+            for fr in (False, True):
+                got = {"and": meng.boolean_staged([and_q], "and", fr,
+                                                  columnar=True)[0],
+                       "pages": meng.boolean_staged(
+                           [or_q], "or", fr, columnar=True,
+                           prefix_p=PAGE_P)[0],
+                       "lookup_staged": meng.lookup_staged(
+                           [lk_t], fr, columnar=True)[0],
+                       "lookup": meng.lookup(lk_t, filter_removed=fr)}
+                for form, out in got.items():
+                    check(_same(out, single[form, fr]), f"{stage}: mesh "
+                          f"{form} fr={fr} differs from the single engine")
+            check(_same(list(meng.read_range(*window)), single["range"]),
+                  f"{stage}: mesh read_range differs")
+            check(_same(meng.prefix_search(pref), single["prefix"]),
+                  f"{stage}: mesh prefix_search differs")
+
+        # -- the writer ---------------------------------------------------
+        kinds = {"single": [], "mesh": []}
+        refreshes = []  # (stage, engine, kind, seconds, split, peak bytes)
+        quiet_s = []    # (stage, seconds, answers checked)
+        peaks = {}
+        timers = _Timers([
+            (qe_mod, "snapshot_tables", "snapshot_tables"),
+            (snap_mod, "build_host_tables", "build_host_tables"),
+            (qe_mod, "build_host_tables", "build_host_tables"),
+            (qe_mod, "upload_tables", "upload_tables"),
+            (qe_mod, "merge_views", "merge_views of the tiers"),
+            (qe_mod, "_SnapshotTier", "decode a tier (K1)"),
+            (pm, "build_sharded_snapshot", "build_sharded_snapshot")])
+        calls = []
+        for name in ("_promote_delta", "_publish_main"):
+            orig = getattr(eng, name)
+            setattr(eng, name, (lambda f, n: lambda *a, **kw: (
+                calls.append(n), f(*a, **kw))[1])(orig, name))
+        next_id = int(values.max()) + 1
+        n_promote = int(1.2 * QueryEngine.DELTA_FRACTION * n_main) + 4
+        grow_ids, merge_log = [], []
+
+        def segments(st):
+            return [(key, segs) for key, segs, _ in st.fingerprint[1]]
+
+        def refresh_both(stage, peak=False):
+            if peak and cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            for label, e in (("single", eng), ("mesh", meng)):
+                before = e._state
+                calls.clear()
+                timers.take()
+                t0 = time.perf_counter()
+                check(e.refresh(ii), f"{stage}: the {label} engine saw no "
+                      "change")
+                dt = time.perf_counter() - t0
+                after = e._state
+                if after.snap is not before.snap:
+                    kind = ("promotion" if "_promote_delta" in calls
+                            else "rebuild")
+                elif segments(after) != segments(before):
+                    kind = "delta"
+                else:
+                    kind = "tombstones"  # the tombstone counts alone moved
+                kinds[label].append(kind)
+                refreshes.append((stage, label, kind, dt, timers.take(),
+                                  t0))
+            if peak and cuda:
+                torch.cuda.synchronize()
+                peaks[stage] = torch.cuda.max_memory_allocated()
+            if meng.delta is not None:
+                n_real = meng.delta.n_real.tolist()
+                check(n_real[0] > 0 and not any(n_real[1:]),
+                      f"{stage}: the mesh delta is not on partition 0: "
+                      f"{n_real}")
+            quiet_s.append((stage,) + quiet(stage))
+
+        def writer():
+            nonlocal next_id, ban, grown
+            try:
+                for r, (put_kind, merge) in enumerate(LIFE_ROUNDS):
+                    ids, doc_terms, docs = life_put(
+                        rng, model, LIFE_DOCS, next_id, weights,
+                        n_promote if put_kind == "promote" else 0)
+                    next_id += len(ids)
+                    ii.put_many(docs)
+                    model.put(ids, doc_terms)
+                    refresh_both(f"round {r} put", peak=put_kind == "promote")
+                    with lock:
+                        grow_ids.extend(ids[:LIFE_SENTINEL].tolist())
+                        grown = np.array(sorted(grow_ids), np.uint32)
+                    # this round's VICTIM docs, other new docs and corpus
+                    # ids; never a GROW doc
+                    others = ids[2 * LIFE_SENTINEL:]
+                    gone = np.concatenate([
+                        ids[LIFE_SENTINEL:2 * LIFE_SENTINEL],
+                        rng.choice(others, size=min(len(others), 8),
+                                   replace=False),
+                        rng.choice(values, size=LIFE_REMOVE
+                                   - LIFE_SENTINEL - 8)]).astype(np.uint32)
+                    ii.put_removed(gone)
+                    model.remove(gone)
+                    refresh_both(f"round {r} put_removed")
+                    with lock:
+                        ban = np.union1d(ban, gone).astype(np.uint32)
+                    if merge:
+                        before = {sh.get_key(): tuple(
+                            s.key for s in sh.segments.snapshot())
+                            for sh in ii._snapshot()}
+                        dev_calls = []
+                        real = merge_mod.merge_views_device
+
+                        def spy(views, removed=None, *, device="cuda"):
+                            dev_calls.append(len(views))
+                            return real(views, removed, device=device)
+
+                        merge_mod.merge_views_device = spy
+                        t0 = time.perf_counter()
+                        try:
+                            n_in = 0
+                            while (m := ii.merge(2, 1000, 4)) > 0:
+                                n_in += m
+                        finally:
+                            merge_mod.merge_views_device = real
+                        after = {sh.get_key(): tuple(
+                            s.key for s in sh.segments.snapshot())
+                            for sh in ii._snapshot()}
+                        done_shards = [int(k) for k in after
+                                       if after[k] != before.get(k)]
+                        model.merged(done_shards)
+                        merge_log.append((time.perf_counter() - t0, n_in,
+                                          len(done_shards), len(dev_calls)))
+                        refresh_both(f"round {r} merge", peak=True)
+            except BaseException as e:
+                failed.append(("writer", e))
+            finally:
+                done.set()
+                gate.reopen()
+
+        try:
+            quiet_s.append(("start",) + quiet("start"))
+            for name, serve in readers.items():  # one warm call each
+                serve(ban, grown)
+            log.update({name: [] for name in readers})
+            threads = [threading.Thread(target=reader, args=item,
+                                        name=f"life-{item[0]}")
+                       for item in readers.items()]
+            t_idle = time.perf_counter()
+            for th in threads:
+                th.start()
+            time.sleep(LIFE_IDLE_S)
+            t_storm = time.perf_counter()
+            w = threading.Thread(target=writer, name="life-writer")
+            w.start()
+            w.join()
+            t_end = time.perf_counter()
+            for th in threads:
+                th.join()
+        finally:
+            timers.restore()
+            done.set()
+        if failed:
+            name, err = failed[0]
+            raise SmokeError(f"phase 9: the {name} thread failed: "
+                             f"{err!r}") from err
+        expect = ["delta", "tombstones", "promotion", "tombstones", "delta",
+                  "tombstones", "rebuild"]
+        check(kinds["single"] == expect, f"phase 9: the single engine's "
+              f"refreshes were {kinds['single']}, want {expect}")
+        check(kinds["mesh"] == [("rebuild" if k == "promotion" else k)
+                                for k in expect],
+              f"phase 9: the mesh engine's refreshes were {kinds['mesh']}")
+        eng.checkpoint_wait()
+        fp = load_fingerprint(load_checkpoint(ckpt)[1])
+        check(fp == eng._main_fp, "phase 9: the checkpoint does not hold "
+              "the last main rebuild")
+
+    for stage, label, kind, dt, split, _ in refreshes:
+        say(f"refresh {stage} ({label}): {kind} in {dt:.4f} s"
+            + (f", of which {split}" if split else ""))
+    for stage, dt, n in quiet_s:
+        say(f"quiet state {stage}: {n} answers equal the oracle, the mesh "
+            f"equal to the single engine, in {dt:.4f} s")
+    paused = sum(dt for stage, dt, _ in quiet_s if stage != "start")
+    storm = t_end - t_storm - paused
+
+    def rate(rows, lo, hi, span):
+        # queries served in [lo, hi], a call counted by its share inside
+        n = sum(k * max(0.0, min(t0 + dt, hi) - max(t0, lo)) / dt
+                for t0, dt, k in rows)
+        return n / span
+
+    qps = {}
+    for name, rows in log.items():
+        idle = [r for r in rows if r[0] < t_storm]
+        during = [r for r in rows if r[0] + r[1] > t_storm]
+        check(during, f"phase 9: the {name} reader served nothing during "
+              "the storm")
+        qps[name] = (rate(rows, t_idle, t_storm, t_storm - t_idle),
+                     rate(rows, t_storm, t_end, storm))
+        slow = max(during, key=lambda r: r[1])
+        # the main rebuilds the slowest call overlapped (the GIL is held
+        # through much of a host build)
+        hit = sorted({f"{st} ({lb})" for st, lb, kd, dt, _, r0 in refreshes
+                      if kd in ("promotion", "rebuild")
+                      and r0 < slow[0] + slow[1] and slow[0] < r0 + dt})
+        say(f"reader {name}: {len(rows)} calls; QPS {qps[name][0]:.1f} "
+            f"with the writer idle, {qps[name][1]:.1f} in the storm (its "
+            f"quiet states taken out); slowest call "
+            f"{max(r[1] for r in idle or rows):.4f} s idle, "
+            f"{slow[1]:.4f} s in the storm, overlapping the main rebuilds "
+            f"{hit or 'none'}")
+    say(f"_host_busy read True in {sum(busy)} of {len(busy)} AND reader "
+        "calls (the index's puts, removals and merges in flight, or the "
+        "load average)")
+    for dt, n_in, n_sh, n_dev in merge_log:
+        say(f"merge-until-zero: {n_in} input segments of {n_sh} shards in "
+            f"{dt:.4f} s; {n_dev} shard merges took the device branch")
+    say("quiet-state seconds by part: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in spent.items()))
+    say(f"max_memory_allocated: {peaks}")
+    say(f"refresh kinds: single {kinds['single']}, mesh {kinds['mesh']}; "
+        f"the checkpoint holds the last rebuild; phase took "
+        f"{time.perf_counter() - t_phase:.4f} s")
+    return {"kinds": kinds, "qps": qps}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--terms", type=int, default=200_000,
@@ -2682,7 +3496,14 @@ def main(argv=None) -> int:
                            uniform, main_list, drive, reads, args.seed))
     phase_merge(torch, args.seed)
     phase_entry(torch, drive)
-    print(f"[phases 5-8] kernel launches per path {per_path}; total "
+    # phase 9 builds engines of its own at the same size: the phase-5
+    # engine's device memory goes first
+    del eng, ub, zb, orb, orzb, pgb, lkb, reads
+    torch.cuda.empty_cache()
+    drive("lifecycle", lambda: phase_lifecycle(torch, terms_mat, values,
+                                               voffs, args.seed + 9))
+    print(f"[phase 9] kernel launches {per_path['lifecycle']}")
+    print(f"[phases 5-9] kernel launches per path {per_path}; total "
           f"{launches}")
     concat = ("sort_rows.runs",)
     dual = ("decode_postings", "sort_rows.two_run", "sort_rows.compact")
@@ -2704,6 +3525,8 @@ def main(argv=None) -> int:
             ("device range", ("decode_postings",)),
             ("entry entry", ("decode_postings", "intersect_many")),
             ("entry overlapping", ("decode_postings", "intersect_many")),
+            ("lifecycle", ("decode_postings", "fused_and", "intersect_many",
+                           "sort_rows")),
             ("dryrun", ("decode_postings", "intersect_many",
                         "sort_rows.runs", "sort_rows.compact"))) + tuple(
                 (f"mesh{D} {p}", names) for D in MESH_DS

@@ -375,7 +375,10 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
                         snap=snap, removed=snap.removed, device_ready=True))
             self.upload_seconds = time.perf_counter() - t0
 
-        th = threading.Thread(target=run, daemon=True, name="tpi-ckpt-upload")
+        # not a daemon: the interpreter joins it at exit, so an upload
+        # still in torch code never meets torch's static destructors (which
+        # abort the process, "terminate called without an active exception")
+        th = threading.Thread(target=run, name="tpi-ckpt-upload")
         self._upload_thread = th
         th.start()
 
@@ -428,8 +431,8 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
                             apply_removed=apply_removed)
 
         if self.checkpoint_async:
-            th = threading.Thread(target=run, daemon=True,
-                                  name="tpi-ckpt-save")
+            # not a daemon, as the upload: a save finishes before exit
+            th = threading.Thread(target=run, name="tpi-ckpt-save")
             th.start()
             self._ckpt_thread = th
         else:

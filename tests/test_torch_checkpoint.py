@@ -414,3 +414,51 @@ def test_port_checkpoint_served_by_jax(tmp_path, rng, monkeypatch):
     port = QueryEngine.from_index(ii, L=256, device="cpu")
     _assert_same(_results(port, _terms(truth)),
                  _results(jax_eng, _terms(truth)))
+
+
+_EXIT_SCRIPT = r"""
+import sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine
+from inverted_index_2_tpu_torch.models import query_engine as qe
+from inverted_index_2_tpu_torch.models.checkpoint import save_checkpoint
+
+ii = InvertedIndex(sys.argv[2])
+for v in range(1, 40):
+    ii.put([b"t%02d" % (v % 7), b"u%02d" % (v % 5)], v)
+path = sys.argv[2] + ".ckpt"
+save_checkpoint(ii, path)
+orig = qe.upload_tables
+
+
+def slow(t, **kw):
+    time.sleep(1.0)  # the interpreter reaches its exit meanwhile
+    snap = orig(t, **kw)
+    torch.cumsum(snap.blocks.reshape(-1).double(), 0)  # torch work at exit
+    with open(sys.argv[3], "w") as f:
+        f.write("uploaded")
+    return snap
+
+
+qe.upload_tables = slow
+eng = QueryEngine.from_checkpoint(path, L=128, device="cpu")
+print(eng.lookup_host([b"t01"])[0].tolist())
+"""
+
+
+def test_exit_waits_for_the_warm_upload(tmp_path):
+    """A process that ends inside a warm start's upload window ends after
+    the upload, with exit code 0: the upload thread is joined at exit, not
+    cut off in torch code (which aborted the process now and then)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    marker = tmp_path / "done"
+    res = subprocess.run(
+        [sys.executable, "-c", _EXIT_SCRIPT, root, str(tmp_path / "idx"),
+         str(marker)], capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["[1,", "8,", "15,", "22,", "29,", "36]"]
+    assert marker.read_text() == "uploaded"
