@@ -61,6 +61,7 @@ from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import MAX_LEVEL
 from ..ops.dict_search import searchsorted_rows
 from ..shard import merge_views
+from ..utils import tracing
 from ..utils.u32 import to_device, to_numpy_u32
 from .host_serve import HostServingMixin
 from .snapshot import (
@@ -280,7 +281,7 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
         self._refresh_lock = threading.Lock()
         self.L = max(128, _round_up(L, 128))
         self._staged_levels_cache = None
-        self.last_stream_stats = None  # set by boolean_staged
+        self.last_stream_stats = None  # set by boolean/lookup_staged
         # with a path, every main tier rebuild saves the tables there (a
         # delta-only refresh does not: the file reconciles at load)
         self.checkpoint_path = checkpoint_path
@@ -621,7 +622,10 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
         return _round_up(need, 128)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return to_device(a, self.device)
+        # a copy from pageable memory: on the card the host waits in it for
+        # every kernel queued before it
+        with tracing.span("tpi.upload"):
+            return to_device(a, self.device)
 
     # -- warmup and stats --------------------------------------------------
 
@@ -917,7 +921,7 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
         if st.delta is None:
             if op == "and":
                 return self._boolean_fused(st, queries, qk, kv, removed)
-            return self._boolean_concat(st, queries, qk, kv, op, removed)
+            return self._boolean_concat(st, queries, qk, kv, op, removed)[0]
         # delta window: the padded dual step at L, then ladder re-serves of
         # the rows whose tiers' summed count exceeds L (the JAX engine's
         # _reserve_ladder: the same batching rule as _drain_levels)
@@ -1061,11 +1065,15 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
 
         def drain():
             nonlocal pend
-            counts = [d[2].cpu().numpy() for d in dispatches]
-            for (members, o, _), c in zip(dispatches, counts):
-                o = to_numpy_u32(o[:, : max(1, int(c.max(initial=0)))])
-                for j, t in enumerate(members):
-                    setter(t[0], o[j, : c[j]].copy())
+            with tracing.span("tpi.harvest"):
+                with tracing.span("tpi.wait"):
+                    counts = [d[2].cpu().numpy() for d in dispatches]
+                for (members, o, _), c in zip(dispatches, counts):
+                    with tracing.span("tpi.wait"):
+                        o = to_numpy_u32(
+                            o[:, : max(1, int(c.max(initial=0)))])
+                    for j, t in enumerate(members):
+                        setter(t[0], o[j, : c[j]].copy())
             dispatches.clear()
             pend = 0
 
@@ -1079,7 +1087,8 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
             i += len(batch)
             bq = self._stack_rows([t[1] for t in batch])
             bkv = np.array([t[2] for t in batch], dtype=np.int32)
-            o2, c2, _ = run(lv, bq, bkv)
+            with tracing.span("tpi.dispatch"):
+                o2, c2, _ = run(lv, bq, bkv)
             dispatches.append((batch, o2, c2))
             pend += len(batch) * lv * 4
             if pend > 4 * _RESERVE_BUDGET:
@@ -1098,20 +1107,25 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
 
     def _fused_followups(self, st, setter, wide, longs, overs, removed):
         """Serve the deferred classes once per call (shared by boolean()
-        and the staged stream)."""
-        items = [(t[0], t[1], t[2], self.L) for t in wide]
-        items += [(t[0], t[1], t[2], self._level_for(int(t[3]), st))
-                  for t in longs]
-        self._drain_levels(
-            items, lambda lv, q, k2: self._fused_run(st, lv, q, k2, removed),
-            setter)
-        if overs:
+        and the staged stream). Returns the number of concat ANDs served
+        singly past the largest class."""
+        with tracing.span("tpi.followups"):
+            items = [(t[0], t[1], t[2], self.L) for t in wide]
+            items += [(t[0], t[1], t[2], self._level_for(int(t[3]), st))
+                      for t in longs]
+            self._drain_levels(
+                items,
+                lambda lv, q, k2: self._fused_run(st, lv, q, k2, removed),
+                setter)
+            if not overs:
+                return 0
             bq = self._stack_rows([t[1] for t in overs])
             bkv = np.array([t[2] for t in overs], dtype=np.int32)
-            res = self._boolean_concat(st, [None] * len(overs), bq, bkv,
-                                       "and", removed)
+            res, singles = self._boolean_concat(st, [None] * len(overs), bq,
+                                                bkv, "and", removed)
             for t, v in zip(overs, res):
                 setter(t[0], v)
+            return singles
 
     def _boolean_fused(self, st, queries, qk, kv, removed):
         """AND through K2: one pass + one fetch for the common case;

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.setops import filter_removed as _filter_removed
+from ..utils import tracing
 from ..utils.u32 import to_numpy_u32
 from .host_serve import _page_columnar
 from .steps import (
@@ -65,7 +66,8 @@ def _start_host_copy(tensors):
 def _finish_host_copy(pending):
     hosts, ev = pending
     if ev is not None:
-        ev.synchronize()
+        with tracing.span("tpi.wait"):
+            ev.synchronize()
     return [h.numpy() for h in hosts]
 
 
@@ -106,6 +108,28 @@ def _empty_result(columnar: bool, P: int):
     return empty + (np.zeros(0, np.int64),) if P else empty
 
 
+# last_stream_stats' counters: every stream sets each of them, 0 where it
+# does not apply, beside "route" ("device", "host" or "hybrid")
+STREAM_COUNTERS = ("queries", "served_rows", "small_p_overflow",
+                   "ladder_reserve", "concat", "concat_singles",
+                   "device_batches", "host_batches", "host_queries")
+
+
+def _stream_stats(route: str, **counts) -> dict:
+    """One call's last_stream_stats."""
+    stats = dict.fromkeys(STREAM_COUNTERS, 0)
+    stats.update(counts)
+    stats["route"] = route
+    return stats
+
+
+def _batch_len(b) -> int:
+    """Queries in one stream batch (term lists or a columnar triple)."""
+    if isinstance(b, tuple) and len(b) == 3:
+        return max(0, len(b[2]) - 1)
+    return len(b)
+
+
 class StagedStreamsMixin:
     """Pipelined stream serving and the concat classes; mixed into
     QueryEngine."""
@@ -129,12 +153,21 @@ class StagedStreamsMixin:
         full-result lookup is pure output, so not crossing the link at all
         is the fastest it can go."""
         st = self._serving_state()
-        if st.host_ready():
-            return self._host_lookup_stream(st, batches, filter_removed,
-                                            columnar, prefix_p)
-        return self.boolean_staged(
-            [[[t] for t in b] for b in batches], "or", filter_removed, depth,
-            columnar, prefix_p, _st=st)
+        batches = [list(b) for b in batches]
+        with tracing.span("tpi.stream") as root:
+            if st.host_ready():
+                out = self._host_lookup_stream(st, batches, filter_removed,
+                                               columnar, prefix_p)
+                n = sum(len(b) for b in batches)
+                self.last_stream_stats = _stream_stats(
+                    "host", queries=n, host_queries=n,
+                    host_batches=sum(1 for b in batches if b))
+            else:
+                out = self._serve_staged(
+                    [[[t] for t in b] for b in batches], "or",
+                    filter_removed, depth, columnar, prefix_p, st)
+        self._add_spans(root)
+        return out
 
     def boolean_staged(self, batches, op: str = "and",
                        filter_removed: bool = False, depth: int = 3,
@@ -154,29 +187,53 @@ class StagedStreamsMixin:
         voffs[n+1]) pair per batch. prefix_p > 0 (requires columnar) is
         pagination: each batch returns (values, voffs, counts) with only
         the first min(count, prefix_p) results per query and the true
-        counts. Afterwards `last_stream_stats` counts the AND stream's
-        queries, the rows served after dedup, each follow-up class, and the
-        batches each side served (a hybrid stream's host thread may serve a
-        batch the device has served too).
+        counts. Afterwards `last_stream_stats` holds the call's counters
+        (STREAM_COUNTERS: the queries, the rows the device served after
+        dedup, each follow-up class, the concat singles, the batches each
+        side served, where a hybrid stream's host thread may serve a batch
+        the device has served too, and the queries the host served) and its
+        route; while tracing is on (utils/tracing.py) also the call's spans,
+        reduced, under "spans".
 
         When the router picks the host route (_host_boolean_route) every
         batch serves on the host; with TPI_HYBRID=1 (_hybrid_staged) the
         AND stream's batches are shared between the device and a host
         thread."""
+        with tracing.span("tpi.stream") as root:
+            out = self._serve_staged(
+                list(batches), op, filter_removed, depth, columnar, prefix_p,
+                _st if _st is not None else self._serving_state())
+        self._add_spans(root)
+        return out
+
+    def _add_spans(self, root) -> None:
+        """The finished root span's reduced spans into last_stream_stats
+        (tracing on)."""
+        if root is not None and self.last_stream_stats is not None:
+            self.last_stream_stats["spans"] = root.spans
+
+    def _serve_staged(self, batches, op, filter_removed, depth, columnar,
+                      prefix_p, st):
+        """boolean_staged's body, inside its root span."""
         if op not in ("and", "or"):
             raise ValueError(f"op {op!r}: want 'and' or 'or'")
         if prefix_p and not columnar:
             raise ValueError("prefix_p requires columnar=True")
-        batches = list(batches)
-        st = _st if _st is not None else self._serving_state()
         if self._host_boolean_route(op, prefix_p, staged=True, st=st):
-            return [self._host_batch(b, op, filter_removed, columnar,
-                                     prefix_p, st) for b in batches]
+            out = [self._host_batch(b, op, filter_removed, columnar,
+                                    prefix_p, st) for b in batches]
+            n = [_batch_len(b) for b in batches]
+            self.last_stream_stats = _stream_stats(
+                "host", queries=sum(n), host_queries=sum(n),
+                host_batches=sum(1 for k in n if k))
+            return out
         removed = st.removed if filter_removed else None
         if st.delta is not None:
             return self._staged_dual_stream(st, batches, op, removed, depth,
                                             columnar, prefix_p)
         if st.snap.n_terms == 0:
+            self.last_stream_stats = _stream_stats(
+                "device", queries=sum(_batch_len(b) for b in batches))
             return [self._empty_index_batch(b, op, filter_removed, columnar,
                                             prefix_p) for b in batches]
         if op != "and" or prefix_p:
@@ -189,20 +246,21 @@ class StagedStreamsMixin:
 
         def harvest(item):
             bi, nq, inv, nu, qk, kv, pending = item
-            small, oc, code = _finish_host_copy(pending)
-            small = small.view(np.uint32)
-            fetched[bi] = (nq, inv, nu, (small, oc, code))
-            # served rows are the unique queries (code[:nu]); follow-up
-            # positions are unique-row indexes, fanned out at assembly
-            for i in np.nonzero(code[:nu] != 0)[0]:
-                c = int(code[i])
-                if c == 1:
-                    wide.append(((bi, int(i)), qk[i], int(kv[i])))
-                elif c != 255:
-                    longs.append(((bi, int(i)), qk[i], int(kv[i]),
-                                  levels_h[c - 2]))
-                else:
-                    overs.append(((bi, int(i)), qk[i], int(kv[i])))
+            with tracing.span("tpi.harvest"):
+                small, oc, code = _finish_host_copy(pending)
+                small = small.view(np.uint32)
+                fetched[bi] = (nq, inv, nu, (small, oc, code))
+                # served rows are the unique queries (code[:nu]); follow-up
+                # positions are unique-row indexes, fanned out at assembly
+                for i in np.nonzero(code[:nu] != 0)[0]:
+                    c = int(code[i])
+                    if c == 1:
+                        wide.append(((bi, int(i)), qk[i], int(kv[i])))
+                    elif c != 255:
+                        longs.append(((bi, int(i)), qk[i], int(kv[i]),
+                                      levels_h[c - 2]))
+                    else:
+                        overs.append(((bi, int(i)), qk[i], int(kv[i])))
 
         # hybrid work-stealing: the device claims batches from the head and
         # a host thread (the native serve releases the GIL) from the tail
@@ -247,14 +305,17 @@ class StagedStreamsMixin:
         pend = deque()
         try:
             while (bi := claim(True)) is not None:
-                nq, qk, kv = self._batch_pack(st, batches[bi])
+                with tracing.span("tpi.pack"):
+                    nq, qk, kv = self._batch_pack(st, batches[bi])
                 if nq == 0:
                     fetched[bi] = (0, None, 0, None)
                     continue
-                nu, qk, kv, inv = self._dedup_batch(nq, qk, kv)
-                devs = self._fused_run_staged(st, qk, kv, removed)
-                pend.append((bi, nq, inv, nu, qk, kv,
-                             _start_host_copy(devs)))
+                with tracing.span("tpi.dedup"):
+                    nu, qk, kv, inv = self._dedup_batch(nq, qk, kv)
+                with tracing.span("tpi.dispatch"):
+                    devs = self._fused_run_staged(st, qk, kv, removed)
+                    pending = _start_host_copy(devs)
+                pend.append((bi, nq, inv, nu, qk, kv, pending))
                 if len(pend) > depth:
                     harvest(pend.popleft())
             while pend:
@@ -270,25 +331,27 @@ class StagedStreamsMixin:
         def setter(pos, v):
             overrides.setdefault(pos[0], {})[pos[1]] = v
 
-        self._fused_followups(st, setter, wide, longs, overs, removed)
+        singles = self._fused_followups(st, setter, wide, longs, overs,
+                                        removed)
         harvested = [bi for bi, f in enumerate(fetched)
                      if f is not None and f[0]]
         served = [fetched[bi] for bi in harvested if bi not in host_res]
-        self.last_stream_stats = {
-            "queries": (sum(f[0] for f in served)
-                        + sum(len(r[1]) - 1 for r in host_res.values())),
-            "served_rows": sum(f[2] for f in served),
-            "small_p_overflow": len(wide),
-            "ladder_reserve": len(longs),
-            "concat": len(overs),
+        host_q = sum(len(r[1]) - 1 for r in host_res.values())
+        self.last_stream_stats = _stream_stats(
+            "device" if worker is None else "hybrid",
+            queries=sum(f[0] for f in served) + host_q,
+            served_rows=sum(f[2] for f in served),
+            small_p_overflow=len(wide), ladder_reserve=len(longs),
+            concat=len(overs), concat_singles=singles,
             # a batch the host stole back may count on both sides
-            "device_batches": len(harvested),
-            "host_batches": len(host_res),
-        }
-        return [self._host_result(host_res[bi], columnar) if bi in host_res
-                else self._assemble(fetched[bi], overrides.get(bi, {}), P,
-                                    columnar)
-                for bi in range(len(batches))]
+            device_batches=len(harvested), host_batches=len(host_res),
+            host_queries=host_q)
+        with tracing.span("tpi.assemble"):
+            return [self._host_result(host_res[bi], columnar)
+                    if bi in host_res
+                    else self._assemble(fetched[bi], overrides.get(bi, {}),
+                                        P, columnar)
+                    for bi in range(len(batches))]
 
     def _host_batch(self, b, op, filter_removed, columnar, P, st):
         """One batch of boolean_staged on the host route. A page (prefix_p)
@@ -417,12 +480,9 @@ class StagedStreamsMixin:
 
         self._drain_levels(longs, run, setter)
         nqs = sum(f[0] for f in fetched)
-        self.last_stream_stats = {"queries": nqs, "served_rows": nqs,
-                                  "small_p_overflow": 0,
-                                  "ladder_reserve": len(longs), "concat": 0,
-                                  "device_batches": sum(
-                                      1 for f in fetched if f[0]),
-                                  "host_batches": 0}
+        self.last_stream_stats = _stream_stats(
+            "device", queries=nqs, served_rows=nqs, ladder_reserve=len(longs),
+            device_batches=sum(1 for f in fetched if f[0]))
         results = []
         for bi in range(len(batches)):
             nq, out_h, oc_h = fetched[bi]
@@ -456,10 +516,11 @@ class StagedStreamsMixin:
         rows stay within the reserve budget, one concat step each; queries
         beyond the largest class go singly at their own block budget.
 
-        With `obuf` (pagination) each chunk scatters its P-slice into it.
-        Otherwise returns (dispatches, singles): dispatches are (query
-        indexes, out, oc, pending copy of oc and the masked max delta),
-        singles {query: exact values} (fetched here: they are rare)."""
+        Returns (dispatches, singles): dispatches are (query indexes, out,
+        oc, pending copy of oc and the masked max delta), singles {query:
+        exact values} (fetched here: they are rare). With `obuf`
+        (pagination) each chunk and single scatters its P-slice into it,
+        dispatches is empty and the singles' values are None."""
         stride = int(s.blocks.shape[1])
         filt = removed is not None and removed.shape[0] > 0
         nq = len(sb_q)
@@ -497,28 +558,31 @@ class StagedStreamsMixin:
                              False)
             if obuf is not None:
                 _scatter_p_step(obuf, sel, o, oc)
+                singles[int(qi)] = None
                 continue
-            c = int(oc[0])
-            singles[int(qi)] = to_numpy_u32(o[0, :c]).copy()
+            with tracing.span("tpi.wait"):
+                c = int(oc[0])
+                singles[int(qi)] = to_numpy_u32(o[0, :c]).copy()
         return dispatches, singles
 
     def _harvest_rows(self, nq, dispatches, singles, wd: bool):
         """Full results of one batch's dispatches: (nq,) list of arrays
         (with wire dedup, adjacent duplicates dropped on the host)."""
-        ocs, mds = [], []
-        for d in dispatches:
-            oc_h, md_h = _finish_host_copy(d[3])
-            ocs.append(oc_h)
-            mds.append(md_h)
-        outs = _wire_fetch([d[1] for d in dispatches], ocs, mds)
-        rows: List[Optional[np.ndarray]] = [None] * nq
-        for (batch, _, _, _), oc, o in zip(dispatches, ocs, outs):
-            for j, qi in enumerate(batch):
-                row = o[j, : oc[j]]
-                rows[qi] = _dedup_adjacent(row) if wd else row
-        for qi, v in singles.items():
-            rows[qi] = v
-        return rows
+        with tracing.span("tpi.harvest"):
+            ocs, mds = [], []
+            for d in dispatches:
+                oc_h, md_h = _finish_host_copy(d[3])
+                ocs.append(oc_h)
+                mds.append(md_h)
+            outs = _wire_fetch([d[1] for d in dispatches], ocs, mds)
+            rows: List[Optional[np.ndarray]] = [None] * nq
+            for (batch, _, _, _), oc, o in zip(dispatches, ocs, outs):
+                for j, qi in enumerate(batch):
+                    row = o[j, : oc[j]]
+                    rows[qi] = _dedup_adjacent(row) if wd else row
+            for qi, v in singles.items():
+                rows[qi] = v
+            return rows
 
     def _resolve_concat(self, st, qk, nq):
         """(idx, found) on the device and each query's total blocks on the
@@ -533,22 +597,27 @@ class StagedStreamsMixin:
         idx_dev, found_dev, sb = _resolve_sb_step(
             s.keys, s.counts, self._dev(_narrow_keys(qk, s.width)),
             s.hash_slots, s.max_probes)
-        return idx_dev, found_dev, sb.cpu().numpy()[:nq].astype(np.int64)
+        with tracing.span("tpi.wait"):
+            sb_h = sb.cpu().numpy()
+        return idx_dev, found_dev, sb_h[:nq].astype(np.int64)
 
     def _boolean_concat(self, st, queries, qk, kv, op: str, removed):
         """Exact AND/OR sized by each query's real total postings: resolve,
         group into total-block classes, one concat-decode + K4 sort +
         run-length pass per class chunk (ops/concat_bool.py). Full-result
         OR without a tombstone filter ships the sorted stream with
-        cross-list duplicates, dropped on the host (wire dedup)."""
+        cross-list duplicates, dropped on the host (wire dedup). Returns
+        (rows, the number of queries served singly past the classes)."""
         nq = len(queries)
-        idx_dev, found_dev, sb_q = self._resolve_concat(st, qk, nq)
+        with tracing.span("tpi.resolve"):
+            idx_dev, found_dev, sb_q = self._resolve_concat(st, qk, nq)
         wd = op == "or" and (removed is None or removed.shape[0] == 0)
-        dispatches, singles = self._dispatch_classes(
-            st.snap, sb_q, idx_dev, found_dev, self._dev(kv), op, removed,
-            wd=wd)
+        with tracing.span("tpi.dispatch"):
+            dispatches, singles = self._dispatch_classes(
+                st.snap, sb_q, idx_dev, found_dev, self._dev(kv), op,
+                removed, wd=wd)
         rows = self._harvest_rows(nq, dispatches, singles, wd)
-        return [r.copy() for r in rows]
+        return [r.copy() for r in rows], len(singles)
 
     def _staged_concat_stream(self, st, batches, op: str, removed,
                               depth: int, columnar: bool, prefix_p: int):
@@ -575,27 +644,36 @@ class StagedStreamsMixin:
         out_all: List = [None] * len(batches)
         resq: deque = deque()
         clsq: deque = deque()
+        counts = dict(queries=0, served_rows=0, concat_singles=0,
+                      device_batches=0)
 
         def stage_resolve(bi):
-            nq, qk, kv = self._batch_pack(st, batches[bi])
+            with tracing.span("tpi.pack"):
+                nq, qk, kv = self._batch_pack(st, batches[bi])
             if nq == 0:
                 resq.append((bi, 0, None, None, None))
                 return
+            counts["queries"] += nq
+            counts["device_batches"] += 1
             # cross-query dedup: serve each distinct query once, fan out at
             # harvest; the flat 10 us row cost is the JAX engine's concat
             # row estimate, not re-measured on the card
-            nu, qk_u, kv_u, inv = self._dedup_batch(nq, qk, kv,
-                                                    row_cost_us=10.0)
+            with tracing.span("tpi.dedup"):
+                nu, qk_u, kv_u, inv = self._dedup_batch(nq, qk, kv,
+                                                        row_cost_us=10.0)
             if inv is not None:
                 nq, qk, kv = nu, qk_u, kv_u
-            if st.host_ready():
-                r = self._resolve_concat(st, qk, nq)
-            else:
-                idx_dev, found_dev, sb = _resolve_sb_step(
-                    s.keys, s.counts, self._dev(_narrow_keys(qk, s.width)),
-                    s.hash_slots, s.max_probes)
-                r = (idx_dev, found_dev, _start_host_copy([sb]))
-            resq.append((bi, nq, inv, self._dev(kv), r))
+            counts["served_rows"] += nq
+            with tracing.span("tpi.resolve"):
+                if st.host_ready():
+                    r = self._resolve_concat(st, qk, nq)
+                else:
+                    idx_dev, found_dev, sb = _resolve_sb_step(
+                        s.keys, s.counts,
+                        self._dev(_narrow_keys(qk, s.width)), s.hash_slots,
+                        s.max_probes)
+                    r = (idx_dev, found_dev, _start_host_copy([sb]))
+                resq.append((bi, nq, inv, self._dev(kv), r))
 
         def stage_classes(item):
             bi, nq, inv, kv_dev, r = item
@@ -605,18 +683,22 @@ class StagedStreamsMixin:
             idx_dev, found_dev, sb = r
             sb_q = (sb if isinstance(sb, np.ndarray)
                     else _finish_host_copy(sb)[0])[:nq].astype(np.int64)
-            if P:
-                obuf = torch.zeros((nq, P + 1), dtype=torch.int32,
-                                   device=self.device)
-                self._dispatch_classes(s, sb_q, idx_dev, found_dev, kv_dev,
-                                       op, removed, win=win, obuf=obuf)
-                pk = _pack_p_step(obuf)
-                clsq.append((bi, nq, inv, (_start_host_copy([pk]), obuf),
-                             None))
-                return
-            dispatches, singles = self._dispatch_classes(
-                s, sb_q, idx_dev, found_dev, kv_dev, op, removed, wd=wd)
-            clsq.append((bi, nq, inv, dispatches, singles))
+            with tracing.span("tpi.dispatch"):
+                if P:
+                    obuf = torch.zeros((nq, P + 1), dtype=torch.int32,
+                                       device=self.device)
+                    _, singles = self._dispatch_classes(
+                        s, sb_q, idx_dev, found_dev, kv_dev, op, removed,
+                        win=win, obuf=obuf)
+                    pk = _pack_p_step(obuf)
+                    clsq.append((bi, nq, inv,
+                                 (_start_host_copy([pk]), obuf), None))
+                else:
+                    dispatches, singles = self._dispatch_classes(
+                        s, sb_q, idx_dev, found_dev, kv_dev, op, removed,
+                        wd=wd)
+                    clsq.append((bi, nq, inv, dispatches, singles))
+            counts["concat_singles"] += len(singles)
 
         def stage_harvest(item):
             bi, nq, inv, dispatches, singles = item
@@ -627,13 +709,15 @@ class StagedStreamsMixin:
                 out_all[bi] = self._harvest_page(nq, inv, P, *dispatches)
                 return
             rows = self._harvest_rows(nq, dispatches, singles, wd)
-            if inv is not None:
-                # dedup fan-out; both output forms below copy per row
-                rows = [rows[int(u)] for u in inv]
-            if columnar:
-                out_all[bi] = _rows_to_columnar(rows)
-            else:
-                out_all[bi] = [np.array(r, dtype=np.uint32) for r in rows]
+            with tracing.span("tpi.assemble"):
+                if inv is not None:
+                    # dedup fan-out; both output forms below copy per row
+                    rows = [rows[int(u)] for u in inv]
+                if columnar:
+                    out_all[bi] = _rows_to_columnar(rows)
+                else:
+                    out_all[bi] = [np.array(r, dtype=np.uint32)
+                                   for r in rows]
 
         for bi in range(len(batches)):
             stage_resolve(bi)
@@ -647,32 +731,39 @@ class StagedStreamsMixin:
                 stage_harvest(clsq.popleft())
         while clsq:
             stage_harvest(clsq.popleft())
+        self.last_stream_stats = _stream_stats("device", **counts)
         return out_all
 
     def _harvest_page(self, nq, inv, P, pending, obuf):
         """The pagination triple of one batch from its u16 delta plane (see
         _pack_p_step); rows whose overflow flag is set are read raw from
         the resident buffer."""
-        pk = _finish_host_copy(pending)[0].view(np.uint16)[:nq]
-        d = pk[:, : P - 1].astype(np.uint32)
-        first = pk[:, P - 1].astype(np.uint32) | (
-            pk[:, P].astype(np.uint32) << 16)
-        hi = pk[:, P + 2].astype(np.int64)
-        counts = pk[:, P + 1].astype(np.int64) | ((hi & 0x7FFF) << 16)
-        vals = np.empty((nq, P), np.uint32)
-        vals[:, 0] = first
-        vals[:, 1:] = first[:, None] + np.cumsum(d, axis=1, dtype=np.uint32)
-        ovr = np.nonzero(hi >> 15)[0]
-        if len(ovr):
-            raw = to_numpy_u32(obuf[torch.from_numpy(ovr).to(obuf.device)])
-            vals[ovr] = raw[:, :P]
-            counts[ovr] = raw[:, P].astype(np.int64)
-        if inv is not None:
-            counts = counts[inv]
-            vals = vals[inv]
-            nq = len(inv)
-        kept = np.minimum(counts, P)
-        pvoffs = np.zeros(nq + 1, dtype=np.int64)
-        np.cumsum(kept, out=pvoffs[1:])
-        m = np.arange(P, dtype=np.int64)[None, :] < kept[:, None]
-        return vals[m], pvoffs, counts
+        with tracing.span("tpi.harvest"):
+            pk = _finish_host_copy(pending)[0].view(np.uint16)[:nq]
+            with tracing.span("tpi.assemble"):
+                d = pk[:, : P - 1].astype(np.uint32)
+                first = pk[:, P - 1].astype(np.uint32) | (
+                    pk[:, P].astype(np.uint32) << 16)
+                hi = pk[:, P + 2].astype(np.int64)
+                counts = pk[:, P + 1].astype(np.int64) | (
+                    (hi & 0x7FFF) << 16)
+                vals = np.empty((nq, P), np.uint32)
+                vals[:, 0] = first
+                vals[:, 1:] = first[:, None] + np.cumsum(d, axis=1,
+                                                         dtype=np.uint32)
+                ovr = np.nonzero(hi >> 15)[0]
+                if len(ovr):
+                    with tracing.span("tpi.wait"):
+                        raw = to_numpy_u32(
+                            obuf[torch.from_numpy(ovr).to(obuf.device)])
+                    vals[ovr] = raw[:, :P]
+                    counts[ovr] = raw[:, P].astype(np.int64)
+                if inv is not None:
+                    counts = counts[inv]
+                    vals = vals[inv]
+                    nq = len(inv)
+                kept = np.minimum(counts, P)
+                pvoffs = np.zeros(nq + 1, dtype=np.int64)
+                np.cumsum(kept, out=pvoffs[1:])
+                m = np.arange(P, dtype=np.int64)[None, :] < kept[:, None]
+                return vals[m], pvoffs, counts
