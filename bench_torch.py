@@ -71,7 +71,7 @@ from inverted_index_2_tpu_torch.models.steps import (
 )
 from inverted_index_2_tpu_torch.ops import cuda_bool, cuda_decode, cuda_fused
 from inverted_index_2_tpu_torch.ops import cuda_sort
-from inverted_index_2_tpu_torch.ops.concat_bool import boolean_concat_step
+from inverted_index_2_tpu_torch.ops.cuda_concat import concat_step
 from inverted_index_2_tpu_torch.parallel import mesh as pm
 from inverted_index_2_tpu_torch.utils.u32 import to_device, to_numpy_u32
 
@@ -796,11 +796,14 @@ def bench_postlen1k(corpus, snap, build_s, Q=2048, iters=12, L=2048, *,
     def or_pass(wire_dedup):
         def run():
             chk = torch.zeros((), dtype=torch.int64, device=device)
-            for SB, _, bi, bf, bk in work:
+            for SB, m, bi, bf, bk in work:
+                rows = torch.arange(m.shape[1], dtype=torch.int32,
+                                    device=device)
                 for t in range(bi.shape[0]):
-                    o, oc = boolean_concat_step(
+                    o, oc = concat_step(
                         snap.blocks, snap.term_block_start, snap.counts,
-                        bi[t], bf[t], bk[t], SB, "or", wire_dedup=wire_dedup)
+                        bi[t], bf[t], bk[t], rows, SB, "or",
+                        wire_dedup=wire_dedup)
                     chk += oc.sum(dtype=torch.int64) + o[:, 0].sum(
                         dtype=torch.int64)
             return chk
@@ -808,9 +811,10 @@ def bench_postlen1k(corpus, snap, build_s, Q=2048, iters=12, L=2048, *,
 
     if covered >= (iters * Q) // 2:
         for SB, m, bi, bf, bk in work:
-            o, oc = boolean_concat_step(
+            o, oc = concat_step(
                 snap.blocks, snap.term_block_start, snap.counts, bi[0], bf[0],
-                bk[0], SB, "or", wire_dedup=True)
+                bk[0], torch.arange(m.shape[1], dtype=torch.int32,
+                                    device=device), SB, "or", wire_dedup=True)
             q = m[0]
             check_rows(f"or_concat SB={SB}", o, oc, None, L,
                        lambda j: oracle.or_(flat_idx[q[j], :kv_flat[q[j]]]),

@@ -1156,16 +1156,20 @@ def check_k3_no_terms(torch, dev):
 
 class CaptureK4:
     """While active, records the arguments of the first K4 sort and the
-    first K4 compaction that ops/setops.py and ops/concat_bool.py dispatch
-    (and passes every call through): .sort = (x, run), .compact = (vals,
-    keep)."""
+    first K4 compaction that ops/setops.py, ops/concat_bool.py and
+    ops/cuda_concat.py (sorts only: the concat kernels compact on their
+    own) dispatch, and passes every call through: .sort = (x, run),
+    .compact = (vals, keep)."""
 
     def __enter__(self):
-        from inverted_index_2_tpu_torch.ops import concat_bool, setops
+        from inverted_index_2_tpu_torch.ops import (
+            concat_bool, cuda_concat, setops)
 
         self.sort = self.compact = None
         self._mods = (setops, concat_bool)
         self._saved = [(m, m.sort_rows, m.compact_rows) for m in self._mods]
+        self._saved_concat = cuda_concat.sort_rows
+        self._concat = cuda_concat
         real_sort, real_compact = setops.sort_rows, setops.compact_rows
 
         def sort_rows(x, run=1):
@@ -1180,11 +1184,13 @@ class CaptureK4:
 
         for m in self._mods:
             m.sort_rows, m.compact_rows = sort_rows, compact_rows
+        self._concat.sort_rows = sort_rows
         return self
 
     def __exit__(self, *exc):
         for m, srt, cmp_ in self._saved:
             m.sort_rows, m.compact_rows = srt, cmp_
+        self._concat.sort_rows = self._saved_concat
         return False
 
     def verify(self, torch, label, compact=True):
@@ -1201,6 +1207,166 @@ class CaptureK4:
             _check_compact(torch, vals, keep, f"real dispatch, {label}",
                            reps=3)
         self.sort = self.compact = None
+
+
+class CaptureConcat:
+    """While active, records the arguments of the first concat step that
+    models/staged.py dispatches and of its largest (the most lanes), and
+    passes every call through: .first and .largest = (args, kwargs)."""
+
+    def __enter__(self):
+        from inverted_index_2_tpu_torch.models import staged
+
+        self.first = self.largest = None
+        self._staged, self._real = staged, staged.concat_step
+        real = self._real
+
+        def lanes(step):
+            return step[0][6].shape[0] * step[0][7]
+
+        def concat_step(*a, **kw):
+            if self.first is None:
+                self.first = (a, kw)
+            if self.largest is None or lanes((a, kw)) > lanes(self.largest):
+                self.largest = (a, kw)
+            return real(*a, **kw)
+
+        staged.concat_step = concat_step
+        return self
+
+    def __exit__(self, *exc):
+        self._staged.concat_step = self._real
+        return False
+
+    def verify(self, torch, label):
+        """The first and the largest captured step against the plain
+        versions (_check_concat); returns the largest's rows."""
+        check(self.first is not None, f"{label}: no concat step dispatched")
+        if self.largest is not self.first:
+            _check_concat(torch, self.first, f"{label}, first chunk", reps=3)
+        res = _check_concat(torch, self.largest, f"{label}, largest chunk")
+        self.first = self.largest = None
+        return res
+
+
+def _check_concat(torch, step, label, reps=10):
+    """One captured concat step (CaptureConcat) run again through the
+    concat kernels (ops/cuda_concat.py) and through their plain versions
+    on the same inputs: the decode's flat rows and meta, then, on K4's sort
+    of them, the compaction in the step's form. The page form writes copies
+    of one buffer of random bits, compared whole; the wire form compacts
+    nothing, so its sorted lanes and lane counts are held to the plain
+    chain's and the full form of its op runs on them. Each bit-identical,
+    timed beside its plain version and its bound. Returns {"concat_decode",
+    "concat_compact"}: (0, ms, plain ms, None, bound ms, bound_by)."""
+    from inverted_index_2_tpu_torch.ops import cuda_concat
+    from inverted_index_2_tpu_torch.ops.concat_bool import (
+        boolean_concat_step,
+        concat_compact_torch,
+        concat_decode_torch,
+        concat_layout,
+    )
+    from inverted_index_2_tpu_torch.ops.cuda_sort import sort_rows
+
+    a, kw = step
+    blocks, tbs, counts, idx, found, kv, rows, SB, op = a
+    P = int(kw.get("prefix_p", 0))
+    wire = bool(kw.get("wire_dedup", False))
+    dev = blocks.device
+    n, K, S = rows.shape[0], idx.shape[1], SB * 128
+    stride = int(blocks.shape[1])
+    r = rows.to(torch.int64)
+    plain_args = (blocks, tbs, counts, idx[r], found[r], kv[r], SB)
+
+    def decode():
+        return cuda_concat.concat_decode(blocks, tbs, counts, idx, found, kv,
+                                         rows, SB)
+
+    flat, meta = decode()
+    wflat, wmeta = concat_decode_torch(*plain_args)
+    torch.cuda.synchronize()
+    check(torch.equal(flat, wflat) and torch.equal(meta, wmeta),
+          f"concat_decode {label}: flat rows or meta differ from the plain "
+          "version")
+    del wflat, wmeta
+    # bytes: each used slot's header, anchor and packed deltas read (128
+    # bytes per 8 bits of delta width, within the arena row), every lane
+    # of flat and the meta written; operations: one select per lane
+    live = found[r] & (torch.arange(K, device=dev)[None, :]
+                       < kv[r].to(torch.int64)[:, None])
+    cnt = torch.where(live, counts[idx[r]].to(torch.int64), 0)
+    slots, in_use = concat_layout(tbs[idx[r]].to(torch.int64), cnt, SB)[:2]
+    cls = ((blocks[slots[in_use], 0] & 0xFF) >> 3).to(torch.int64)
+    used_bytes = int((8 + 128 * cls).clamp(max=4 * stride).sum())
+    del live, cnt, slots, in_use, cls
+    k_ms, e_ms = kernel_ms(torch, decode, reps)
+    p_ms = time_ms(torch, lambda: concat_decode_torch(*plain_args), 3)
+    b_ms, b_by = bound(used_bytes + n * S * 4 + 16 * n, n * S)
+    print(f"[phase 3] concat_decode ({n}, {S}) K={K}, {label}: bit-identical, "
+          f"flat rows and meta, kernel {k_ms:.4f} ms ({e_ms:.4f} back to "
+          f"back), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    res = {"concat_decode": (0, k_ms, p_ms, None, b_ms, b_by)}
+
+    svals = sort_rows(flat, run=128)
+    n_valid = int(meta[0].sum())
+    if wire:
+        got = cuda_concat.concat_step(blocks, tbs, counts, idx, found, kv,
+                                      rows, SB, op, wire_dedup=True)
+        want = boolean_concat_step(*plain_args, op, wire_dedup=True)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"concat step, wire form, {label}: sorted lanes or lane "
+              "counts differ from the plain chain")
+        del got, want
+    if P:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SB)
+        buf = torch.randint(-2**31, 2**31, (int(idx.shape[0]), P + 1),
+                            dtype=torch.int32, device=dev, generator=gen)
+        got_b, want_b = buf.clone(), buf.clone()
+
+        def compact():
+            return cuda_concat.concat_compact(svals, meta, op, K, P, got_b,
+                                              rows)
+
+        def plain():
+            return concat_compact_torch(svals, meta, op, K, P, want_b, rows)
+
+        compact()
+        plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got_b, want_b),
+              f"concat_compact, page form P={P}, {label}: the (Q, P+1) "
+              "buffer differs from the plain version's")
+        form, out_bytes = f"page form P={P}", n * (P + 1) * 4
+        del buf
+    else:
+        def compact():
+            return cuda_concat.concat_compact(svals, meta, op, K)
+
+        def plain():
+            return concat_compact_torch(svals, meta, op, K)
+
+        got, want = compact(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"concat_compact {op}, full form, {label}: rows or counts "
+              "differ from the plain version")
+        form, out_bytes = f"{op} full form", n * S * 4 + 4 * n
+        del got, want
+    # bytes: the valid lanes and the meta read once, the output written;
+    # operations: a compare and a scan step per valid lane
+    k_ms, e_ms = kernel_ms(torch, compact, reps)
+    p_ms = time_ms(torch, plain, 3)
+    b_ms, b_by = bound(4 * n_valid + 16 * n + out_bytes, 2 * n_valid)
+    wired = " (and the wire step's output)" if wire else ""
+    print(f"[phase 3] concat_compact ({n}, {S}) {form}{wired}, "
+          f"{label}: bit-identical, {n_valid} valid lanes, kernel "
+          f"{k_ms:.4f} ms ({e_ms:.4f} back to back), plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    res["concat_compact"] = (0, k_ms, p_ms, None, b_ms, b_by)
+    del flat, meta, svals
+    return res
 
 
 def phase_intersect(torch, eng, st, batches, baseline=None):
@@ -3347,7 +3513,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     from inverted_index_2_tpu_torch.ops import (
-        _build, cuda_bool, cuda_decode, cuda_fused, cuda_sort)
+        _build, cuda_bool, cuda_concat, cuda_decode, cuda_fused, cuda_sort)
 
     t0 = time.perf_counter()
     _build.library()
@@ -3369,18 +3535,30 @@ def main(argv=None) -> int:
         return values[voffs[i]:voffs[i + 1]]
 
     kern = phase_kernels(torch, eng, terms_mat, uniform_b, baseline)
-    # K4 on real dispatches of the OR streams: the first concat-class chunk
-    # of the full-result stream (which ships the sorted lanes and compacts
-    # nothing) and of the page stream (whose compaction takes a column
-    # slice of the sorted matrix)
-    with CaptureK4() as cap:
+    # the concat step on real dispatches: the AND follow-ups' route
+    # (_boolean_concat; no list of this corpus is past MAX_LEVEL, so no
+    # follow-up reaches it, and it is driven on the first uniform batch),
+    # the OR stream (the wire form) and the OR page stream (the page form).
+    # The concat kernels against their plain versions, and K4's sort from
+    # runs of 128 on the first chunk; the concat kernel compacts, so K4's
+    # compaction runs on none of them
+    st0 = eng._serving_state()
+    qk0, kv0 = eng._pack_boolean(st0, uniform_b[0])
+    with CaptureConcat() as cc:
+        eng._boolean_concat(st0, uniform_b[0], qk0, kv0, "and", None)
+    kern.update(cc.verify(torch, "the AND follow-ups' route, uniform batch"))
+    del st0, qk0, kv0
+    with CaptureK4() as cap, CaptureConcat() as cc:
         eng.boolean_staged(uniform_b, "or", columnar=True)
     cap.verify(torch, "first concat-class chunk of the OR stream",
                compact=False)
-    with CaptureK4() as cap:
+    cc.verify(torch, "the OR stream")
+    with CaptureK4() as cap, CaptureConcat() as cc:
         eng.boolean_staged(uniform_b, "or", columnar=True, prefix_p=PAGE_P)
-    cap.verify(torch, "first concat-class chunk of the OR page stream")
-    del cap
+    cap.verify(torch, "first concat-class chunk of the OR page stream",
+               compact=False)
+    cc.verify(torch, "the OR page stream")
+    del cap, cc
     phase_engine_small(torch, "cuda")
     phase_refresh(torch, "cuda")
     phase_checkpoint_small(torch, "cuda")
@@ -3390,7 +3568,9 @@ def main(argv=None) -> int:
     counters = {"decode_postings": cuda_decode.decode_postings,
                 "fused_and": cuda_fused.fused_and,
                 "intersect_many": cuda_bool.intersect_many,
-                "sort_rows": cuda_sort.sort_rows}
+                "sort_rows": cuda_sort.sort_rows,
+                "concat_decode": cuda_concat.concat_decode,
+                "concat_compact": cuda_concat.concat_compact}
     launches = {name: 0 for name in counters}
     per_path = {}
 
@@ -3505,7 +3685,9 @@ def main(argv=None) -> int:
     print(f"[phase 9] kernel launches {per_path['lifecycle']}")
     print(f"[phases 5-9] kernel launches per path {per_path}; total "
           f"{launches}")
-    concat = ("sort_rows.runs",)
+    runs = ("sort_rows.runs",)
+    # the engine's concat classes: the concat kernels around K4's sort
+    concat = runs + ("concat_decode",)
     dual = ("decode_postings", "sort_rows.two_run", "sort_rows.compact")
     for path, names in (
             ("and uniform", ("fused_and", "fused_and.width",
@@ -3513,7 +3695,7 @@ def main(argv=None) -> int:
             ("and zipf", ("fused_and.width",)),
             ("lookup", ("decode_postings",)),
             ("or uniform", concat), ("or zipf", concat),
-            ("or pages", concat + ("sort_rows.compact",)),
+            ("or pages", concat + ("concat_compact",)),
             ("lookup_staged", concat),
             ("dual and uniform", dual + ("intersect_many",)),
             ("dual and zipf", dual + ("intersect_many",)),
@@ -3533,9 +3715,9 @@ def main(argv=None) -> int:
                 for p, names in (
                     ("lookup", ("decode_postings",)),
                     ("and", ("decode_postings", "intersect_many")),
-                    ("or", ("decode_postings",) + concat
+                    ("or", ("decode_postings",) + runs
                      + ("sort_rows.compact",)),
-                    ("pages", ("decode_postings",) + concat
+                    ("pages", ("decode_postings",) + runs
                      + ("sort_rows.compact",)),
                     ("lookup_staged", ("decode_postings",
                                        "sort_rows.compact")),
@@ -3574,6 +3756,9 @@ def main(argv=None) -> int:
     k2 = (src + "fused_and.cu", "inverted_index_2_tpu/ops/pallas_fused.py:380")
     k3 = (src + "intersect.cu", "inverted_index_2_tpu/ops/pallas_bool.py:113")
     k4 = (src + "sort_rows.cu", "inverted_index_2_tpu/ops/pallas_sort.py:86")
+    # no TPU kernel: the JAX package runs the concat step as plain XLA
+    concat_src = (src + "concat_step.cu",
+                  "inverted_index_2_tpu/ops/concat_bool.py:139")
     # name -> (source, replaces, the launch count it reports). K1 has one
     # entry (its second row is the dual step's shape). K2 has a row per
     # output that the paths launch: "fused_and" is the width-P page of the
@@ -3585,7 +3770,9 @@ def main(argv=None) -> int:
     # launches the general sort (checked above), whose times are in the
     # phase-3 lines only. The ".mesh" rows are phase 6's partition shapes
     # (K1 with partition 0's found mask, K3 on a query tile, K4's sort and
-    # compaction of an OR tile), with the launches of the mesh paths alone
+    # compaction of an OR tile), with the launches of the mesh paths alone.
+    # The concat rows are the largest chunk of the AND follow-ups' route
+    # (phase 3; the OR stream's and the page stream's are in its lines)
     meta = {"decode_postings": k1 + ("decode_postings",),
             "decode_postings.found": k1 + ("decode_postings",),
             "fused_and": k2 + ("fused_and.width",),
@@ -3597,7 +3784,9 @@ def main(argv=None) -> int:
             "decode_postings.mesh": k1 + ("decode_postings",),
             "intersect_many.mesh": k3 + ("intersect_many",),
             "sort_rows.mesh": k4 + ("sort_rows.runs",),
-            "compact_rows.mesh": k4 + ("sort_rows.compact",)}
+            "compact_rows.mesh": k4 + ("sort_rows.compact",),
+            "concat_decode": concat_src + ("concat_decode",),
+            "concat_compact": concat_src + ("concat_compact",)}
     rows = []
     for name, (source, replaces, counted) in meta.items():
         err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]

@@ -57,6 +57,7 @@ import torch
 
 from ..codec import keys as keys_mod
 from ..ops import _build
+from ..ops.cuda_concat import concat_step
 from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import MAX_LEVEL
 from ..ops.dict_search import searchsorted_rows
@@ -80,7 +81,6 @@ from .snapshot import (
 from .staged import StagedStreamsMixin
 from .steps import (
     _RESERVE_BUDGET,
-    _concat_bool_sel_step,
     _dedup_adjacent,
     _ladder,
     _narrow_keys,
@@ -658,8 +658,8 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
         max_blocks = k_max * (-(-max(1, s.max_count) // 128))
         for SB in self._SB_CLASSES:
             for op in ops:
-                _concat_bool_sel_step(s.blocks, s.term_block_start, s.counts,
-                                      idx, found, kv, sel, SB, op)
+                concat_step(s.blocks, s.term_block_start, s.counts, idx,
+                            found, kv, sel, SB, op)
                 n += 1
             if SB >= max_blocks:
                 break
@@ -1107,8 +1107,8 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
 
     def _fused_followups(self, st, setter, wide, longs, overs, removed):
         """Serve the deferred classes once per call (shared by boolean()
-        and the staged stream). Returns the number of concat ANDs served
-        singly past the largest class."""
+        and the staged stream). Returns (the number of concat ANDs served
+        singly past the largest class, the concat steps launched)."""
         with tracing.span("tpi.followups"):
             items = [(t[0], t[1], t[2], self.L) for t in wide]
             items += [(t[0], t[1], t[2], self._level_for(int(t[3]), st))
@@ -1118,14 +1118,14 @@ class QueryEngine(HostServingMixin, StagedStreamsMixin):
                 lambda lv, q, k2: self._fused_run(st, lv, q, k2, removed),
                 setter)
             if not overs:
-                return 0
+                return 0, 0
             bq = self._stack_rows([t[1] for t in overs])
             bkv = np.array([t[2] for t in overs], dtype=np.int32)
-            res, singles = self._boolean_concat(st, [None] * len(overs), bq,
-                                                bkv, "and", removed)
+            res, singles, chunks = self._boolean_concat(
+                st, [None] * len(overs), bq, bkv, "and", removed)
             for t, v in zip(overs, res):
                 setter(t[0], v)
-            return singles
+            return singles, chunks
 
     def _boolean_fused(self, st, queries, qk, kv, removed):
         """AND through K2: one pass + one fetch for the common case;

@@ -8,7 +8,8 @@ CUDA event recorded after them, so host packing overlaps device work.
 Three streams:
   * AND: the fused stream through K2 (the main branch of boolean_staged);
   * OR, pagination (prefix_p) and lookup_staged: the concat-class stream
-    (_staged_concat_stream), whose row and compaction sorts run through K4;
+    (_staged_concat_stream), whose steps run the concat kernels around K4's
+    row sort (ops/cuda_concat.py);
   * every op while a delta tier is live: the dual stream
     (_staged_dual_stream), the padded dual step with its AND through K3.
 With retained host tables, lookup_staged serves on the host, and
@@ -25,6 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops.cuda_concat import concat_step
 from ..ops.setops import filter_removed as _filter_removed
 from ..utils import tracing
 from ..utils.u32 import to_numpy_u32
@@ -32,7 +34,6 @@ from .host_serve import _page_columnar
 from .steps import (
     _RESERVE_BUDGET,
     _batch_as_lists,
-    _concat_bool_sel_step,
     _dedup_adjacent,
     _host_resolve_sb,
     _narrow_keys,
@@ -112,7 +113,8 @@ def _empty_result(columnar: bool, P: int):
 # does not apply, beside "route" ("device", "host" or "hybrid")
 STREAM_COUNTERS = ("queries", "served_rows", "small_p_overflow",
                    "ladder_reserve", "concat", "concat_singles",
-                   "device_batches", "host_batches", "host_queries")
+                   "concat_chunks", "device_batches", "host_batches",
+                   "host_queries")
 
 
 def _stream_stats(route: str, **counts) -> dict:
@@ -189,7 +191,8 @@ class StagedStreamsMixin:
         the first min(count, prefix_p) results per query and the true
         counts. Afterwards `last_stream_stats` holds the call's counters
         (STREAM_COUNTERS: the queries, the rows the device served after
-        dedup, each follow-up class, the concat singles, the batches each
+        dedup, each follow-up class, the concat singles, the concat steps
+        launched (class chunks plus singles), the batches each
         side served, where a hybrid stream's host thread may serve a batch
         the device has served too, and the queries the host served) and its
         route; while tracing is on (utils/tracing.py) also the call's spans,
@@ -331,8 +334,8 @@ class StagedStreamsMixin:
         def setter(pos, v):
             overrides.setdefault(pos[0], {})[pos[1]] = v
 
-        singles = self._fused_followups(st, setter, wide, longs, overs,
-                                        removed)
+        singles, chunks = self._fused_followups(st, setter, wide, longs,
+                                                overs, removed)
         harvested = [bi for bi, f in enumerate(fetched)
                      if f is not None and f[0]]
         served = [fetched[bi] for bi in harvested if bi not in host_res]
@@ -342,7 +345,7 @@ class StagedStreamsMixin:
             queries=sum(f[0] for f in served) + host_q,
             served_rows=sum(f[2] for f in served),
             small_p_overflow=len(wide), ladder_reserve=len(longs),
-            concat=len(overs), concat_singles=singles,
+            concat=len(overs), concat_singles=singles, concat_chunks=chunks,
             # a batch the host stole back may count on both sides
             device_batches=len(harvested), host_batches=len(host_res),
             host_queries=host_q)
@@ -513,57 +516,67 @@ class StagedStreamsMixin:
                           obuf=None):
         """Launch every class chunk of one resolved batch: queries grouped
         by total blocks sb_q into the _SB_CLASSES, in chunks whose decoded
-        rows stay within the reserve budget, one concat step each; queries
-        beyond the largest class go singly at their own block budget.
+        rows stay within the reserve budget, one concat step each
+        (ops/cuda_concat.py); queries beyond the largest class go singly at
+        their own block budget. The class order is uploaded once and each
+        step reads its queries through a slice of it.
 
-        Returns (dispatches, singles): dispatches are (query indexes, out,
-        oc, pending copy of oc and the masked max delta), singles {query:
-        exact values} (fetched here: they are rare). With `obuf`
-        (pagination) each chunk and single scatters its P-slice into it,
+        Returns (dispatches, singles, chunks): dispatches are (query
+        indexes, out, oc, pending copy of oc and the masked max delta),
+        singles {query: exact values} (fetched here: they are rare), chunks
+        the steps launched (class chunks plus singles). With `obuf`
+        (pagination) each chunk and single writes its P-slice into it,
         dispatches is empty and the singles' values are None."""
         stride = int(s.blocks.shape[1])
         filt = removed is not None and removed.shape[0] > 0
         nq = len(sb_q)
+        order = np.argsort(sb_q, kind="stable")
+        order_dev = self._dev(order.astype(np.int32))
 
-        def run(batch, SB, wire_dedup):
-            sel = self._dev(batch.astype(np.int32))
-            o, oc = _concat_bool_sel_step(
+        def run(lo, hi, SB, wire_dedup):
+            rows = order_dev[lo:hi]
+            res = concat_step(
                 s.blocks, s.term_block_start, s.counts, idx_dev, found_dev,
-                kv_dev, sel, SB, op, prefix_p=win, wire_dedup=wire_dedup)
+                kv_dev, rows, SB, op, prefix_p=win, wire_dedup=wire_dedup,
+                obuf=obuf if win else None)
+            if res is None:  # the step wrote the page
+                return None, None
+            o, oc = res
             if filt:
                 o, oc = _filter_removed(o, oc, removed)
-            return sel, o, oc
+            if obuf is not None:  # AND or tombstone-filtered pages
+                _scatter_p_step(obuf, rows, o, oc)
+            return o, oc
 
-        order = np.argsort(sb_q, kind="stable")
-        dispatches, singles = [], {}
+        sb_sorted = sb_q[order]
+        dispatches, singles, chunks = [], {}, 0
         pos = 0
         for SB in self._SB_CLASSES:
-            hi = int(np.searchsorted(sb_q[order], SB, side="right"))
-            members = order[pos:hi]
-            pos = hi
+            hi = int(np.searchsorted(sb_sorted, SB, side="right"))
             qb = max(8, (_RESERVE_BUDGET // (SB * max(stride, 128))) // 8 * 8)
-            for c0 in range(0, len(members), qb):
-                batch = members[c0: c0 + qb]
-                sel, o, oc = run(batch, SB, wd)
-                if obuf is not None:
-                    _scatter_p_step(obuf, sel, o, oc)
-                    continue
-                md = _wire_meta_step(o, oc)
-                dispatches.append((batch, o, oc, _start_host_copy([oc, md])))
+            for lo in range(pos, hi, qb):
+                end = min(lo + qb, hi)
+                o, oc = run(lo, end, SB, wd)
+                chunks += 1
+                if obuf is None:
+                    md = _wire_meta_step(o, oc)
+                    dispatches.append((order[lo:end], o, oc,
+                                       _start_host_copy([oc, md])))
+            pos = hi
             if pos >= nq:
                 break
         # beyond the largest class: one at a time at their exact budget
-        for qi in order[pos:]:
-            sel, o, oc = run(np.array([qi]), _round_up(int(sb_q[qi]), 8),
-                             False)
+        for at in range(pos, nq):
+            qi = int(order[at])
+            o, oc = run(at, at + 1, _round_up(int(sb_q[qi]), 8), False)
+            chunks += 1
             if obuf is not None:
-                _scatter_p_step(obuf, sel, o, oc)
-                singles[int(qi)] = None
+                singles[qi] = None
                 continue
             with tracing.span("tpi.wait"):
                 c = int(oc[0])
-                singles[int(qi)] = to_numpy_u32(o[0, :c]).copy()
-        return dispatches, singles
+                singles[qi] = to_numpy_u32(o[0, :c]).copy()
+        return dispatches, singles, chunks
 
     def _harvest_rows(self, nq, dispatches, singles, wd: bool):
         """Full results of one batch's dispatches: (nq,) list of arrays
@@ -604,20 +617,21 @@ class StagedStreamsMixin:
     def _boolean_concat(self, st, queries, qk, kv, op: str, removed):
         """Exact AND/OR sized by each query's real total postings: resolve,
         group into total-block classes, one concat-decode + K4 sort +
-        run-length pass per class chunk (ops/concat_bool.py). Full-result
+        run-length pass per class chunk (ops/cuda_concat.py). Full-result
         OR without a tombstone filter ships the sorted stream with
         cross-list duplicates, dropped on the host (wire dedup). Returns
-        (rows, the number of queries served singly past the classes)."""
+        (rows, the number of queries served singly past the classes, the
+        concat steps launched)."""
         nq = len(queries)
         with tracing.span("tpi.resolve"):
             idx_dev, found_dev, sb_q = self._resolve_concat(st, qk, nq)
         wd = op == "or" and (removed is None or removed.shape[0] == 0)
         with tracing.span("tpi.dispatch"):
-            dispatches, singles = self._dispatch_classes(
+            dispatches, singles, chunks = self._dispatch_classes(
                 st.snap, sb_q, idx_dev, found_dev, self._dev(kv), op,
                 removed, wd=wd)
         rows = self._harvest_rows(nq, dispatches, singles, wd)
-        return [r.copy() for r in rows], len(singles)
+        return [r.copy() for r in rows], len(singles), chunks
 
     def _staged_concat_stream(self, st, batches, op: str, removed,
                               depth: int, columnar: bool, prefix_p: int):
@@ -645,7 +659,7 @@ class StagedStreamsMixin:
         resq: deque = deque()
         clsq: deque = deque()
         counts = dict(queries=0, served_rows=0, concat_singles=0,
-                      device_batches=0)
+                      concat_chunks=0, device_batches=0)
 
         def stage_resolve(bi):
             with tracing.span("tpi.pack"):
@@ -687,18 +701,19 @@ class StagedStreamsMixin:
                 if P:
                     obuf = torch.zeros((nq, P + 1), dtype=torch.int32,
                                        device=self.device)
-                    _, singles = self._dispatch_classes(
+                    _, singles, chunks = self._dispatch_classes(
                         s, sb_q, idx_dev, found_dev, kv_dev, op, removed,
                         win=win, obuf=obuf)
                     pk = _pack_p_step(obuf)
                     clsq.append((bi, nq, inv,
                                  (_start_host_copy([pk]), obuf), None))
                 else:
-                    dispatches, singles = self._dispatch_classes(
+                    dispatches, singles, chunks = self._dispatch_classes(
                         s, sb_q, idx_dev, found_dev, kv_dev, op, removed,
                         wd=wd)
                     clsq.append((bi, nq, inv, dispatches, singles))
             counts["concat_singles"] += len(singles)
+            counts["concat_chunks"] += chunks
 
         def stage_harvest(item):
             bi, nq, inv, dispatches, singles = item

@@ -10,7 +10,9 @@ import torch
 from ..codec import hashing
 from ..codec import keys as keys_mod
 from ..ops import setops
-from ..ops.concat_bool import boolean_concat_step, resolve_step
+from ..ops.concat_bool import resolve_step
+# the page scatter lives with the plain concat step; its JAX name stays here
+from ..ops.concat_bool import scatter_page as _scatter_p_step  # noqa: F401
 from ..ops.cuda_bool import intersect_many
 from ..ops.cuda_decode import decode_postings
 from ..ops.cuda_fused import fused_and, reorder_smallest_base
@@ -224,32 +226,6 @@ def _split_idx_step(idx_signed):
     """Host-resolved signed term rows (-1 = miss) -> the (idx, found) pair
     the concat steps take."""
     return idx_signed.clamp(min=0).to(torch.int64), idx_signed >= 0
-
-
-def _concat_bool_sel_step(blocks, tbs, counts, idx_full, found_full,
-                          kv_full, sel, SB: int, op: str, prefix_p: int = 0,
-                          wire_dedup: bool = False):
-    """boolean_concat_step over the rows `sel` (B,) of one resolved batch
-    (the stream launches no pad rows, so every entry is a real row)."""
-    s2 = sel.to(torch.int64)
-    return boolean_concat_step(blocks, tbs, counts, idx_full[s2],
-                               found_full[s2], kv_full[s2], SB, op,
-                               prefix_p=prefix_p, wire_dedup=wire_dedup)
-
-
-def _scatter_p_step(obuf, sel, o, oc):
-    """Write one class chunk's P-slice into the batch's result buffer:
-    obuf (QB, P+1) u32 bits, columns [0, P) the first P values and column P
-    the true count, row sel[i] from chunk row i. In place; returns obuf.
-    Every sel entry must be a real row: the caller slices pad rows off
-    first, because a torch index of -1 writes the LAST row (JAX's did too,
-    before mode="drop"), which would overwrite the last query's page."""
-    P = obuf.shape[1] - 1
-    o2 = o[:, :P]
-    if o2.shape[1] < P:
-        o2 = torch.nn.functional.pad(o2, (0, P - o2.shape[1]))
-    row = torch.cat([o2.to(obuf.dtype), oc.to(obuf.dtype)[:, None]], dim=1)
-    return obuf.index_copy_(0, sel.to(torch.int64), row)
 
 
 def _u16_bits(x):

@@ -1,5 +1,6 @@
 """Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND, K3
-sorted-set AND, K4 row sort, merge and compaction).
+sorted-set AND, K4 row sort, merge and compaction, the concat-class step's
+decode and compaction).
 
 At first use (never at import) nvcc compiles every `csrc/*.cu` for Hopper
 (`sm_90a`), one process per source in parallel, and links them into one
@@ -107,6 +108,12 @@ def _bind(lib):
     lib.tpi_merge_runs.restype = i
     lib.tpi_intersect.argtypes = [vp, vp, vp, i, i, i, i, vp, vp, vp]
     lib.tpi_intersect.restype = i
+    lib.tpi_concat_decode.argtypes = [vp, i, vp, vp, vp, vp, vp, i, vp, i64,
+                                      i64, vp, vp, vp]
+    lib.tpi_concat_decode.restype = i
+    lib.tpi_concat_compact.argtypes = [vp, i64, vp, i64, i, i, vp, vp, vp, vp,
+                                       vp, i64, i, vp]
+    lib.tpi_concat_compact.restype = i
     lib.tpi_error_string.argtypes = [i]
     lib.tpi_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,8 +8,10 @@ reduced by run length (lists are sorted-unique, so a value appears once per
 list that holds it):
     AND: run length == k_valid      OR: first of run
 then the kept lanes are compacted (ops/compaction.py, K4's compaction).
-Exact at any length; no truncation and no re-serve. The decode and the
-run-length marks are plain torch ops, as they were plain XLA in JAX.
+Exact at any length; no truncation and no re-serve. Here the decode and the
+run-length marks are plain torch ops, as they were plain XLA in JAX: the
+executable spec, in two halves (concat_decode_torch, concat_compact_torch),
+of the two kernels that run the step on the card (ops/cuda_concat.py).
 
 u32 values are int32 bits (utils/u32.py); 0xFFFFFFFF is both the mask fill
 and a legal posting, handled as the JAX step does.
@@ -91,7 +93,98 @@ def last_values(vals, cum, cnt):
     S = vals.shape[1] * BLOCK
     last_slot = (cum[:, 1:] - 1).clamp(min=0)
     last_lane = ((cnt - 1) % BLOCK).clamp(min=0)
-    return vals.reshape(Q, S).gather(1, last_slot * BLOCK + last_lane)
+    at = (last_slot * BLOCK + last_lane).clamp(max=S - 1)
+    return vals.reshape(Q, S).gather(1, at)
+
+
+def concat_decode_torch(blocks, term_block_start, counts, idx, found,
+                        k_valid, SB: int):
+    """The step's first half, plain version of the concat decode kernel
+    (ops/cuda_concat.py): (flat (Q, SB*128) u32 bits, each query's live
+    lists' blocks laid out and decoded, 0xFFFFFFFF on the other lanes;
+    meta (4, Q) int32, rows n_valid (the lanes holding postings), k_valid,
+    any_missing (a required term is absent) and ff_all (every live list's
+    last posting is 0xFFFFFFFF, k_valid > 0, some list is live and none
+    missing))."""
+    Q, K = idx.shape
+    dev = blocks.device
+    kv = k_valid.to(torch.int64)
+    kmask = torch.arange(K, device=dev)[None, :] < kv[:, None]
+    live = found & kmask
+    cnt = torch.where(live, counts[idx].to(torch.int64), 0)
+    rows, in_use, bit, cnt_j, cum = concat_layout(
+        term_block_start[idx].to(torch.int64), cnt, SB)
+    flat, vals, mask = decode_masked(blocks, rows, in_use, bit, cnt_j)
+    n_valid = mask.reshape(Q, SB * BLOCK).sum(dim=1)
+    # a genuine 0xFFFFFFFF in every list merges with the fill: test each
+    # list's LAST value instead
+    has_ff = (cnt > 0) & (last_values(vals, cum, cnt) == SENT)
+    any_missing = (kmask & ~found).any(dim=1)
+    ff_all = ((has_ff | ~live).all(dim=1) & (kv > 0) & live.any(dim=1)
+              & ~any_missing)
+    meta = torch.stack([n_valid, kv, any_missing.to(torch.int64),
+                        ff_all.to(torch.int64)]).to(torch.int32)
+    return flat, meta
+
+
+def concat_marks_torch(svals, meta, op: str, K: int):
+    """The run-length marks over the sorted rows svals (Q, S): (keep (Q, S)
+    bool, oc (Q,) int32, the result sizes)."""
+    Q, S = svals.shape
+    dev = svals.device
+    n_valid, kv, any_missing, ff_all = meta.to(torch.int64)
+    first = torch.cat([torch.ones((Q, 1), dtype=torch.bool, device=dev),
+                       svals[:, 1:] != svals[:, :-1]], dim=1)
+    if op == "and":
+        # an absent REQUIRED term voids the AND
+        keep = (run_reaches_k(svals, kv, K) & first & (svals != SENT)
+                & (any_missing == 0)[:, None])
+        return keep, (keep.sum(dim=1) + ff_all).to(torch.int32)
+    in_region = torch.arange(S, device=dev)[None, :] < n_valid[:, None]
+    keep = first & in_region
+    return keep, keep.sum(dim=1).to(torch.int32)
+
+
+def scatter_page(obuf, sel, o, oc):
+    """Write one class chunk's P-slice into the batch's result buffer:
+    obuf (QB, P+1) u32 bits, columns [0, P) the first P values and column P
+    the true count, row sel[i] from chunk row i. In place; returns obuf.
+    Every sel entry must be a real row: the caller slices pad rows off
+    first, because a torch index of -1 writes the LAST row (JAX's did too,
+    before mode="drop"), which would overwrite the last query's page."""
+    P = obuf.shape[1] - 1
+    o2 = o[:, :P]
+    if o2.shape[1] < P:
+        o2 = torch.nn.functional.pad(o2, (0, P - o2.shape[1]))
+    row = torch.cat([o2.to(obuf.dtype), oc.to(obuf.dtype)[:, None]], dim=1)
+    return obuf.index_copy_(0, sel.to(torch.int64), row)
+
+
+def concat_compact_torch(svals, meta, op: str, K: int, prefix_p: int = 0,
+                         obuf=None, rows=None):
+    """The step's second half, plain version of the concat compaction
+    kernel: the run-length marks and the kept lanes compacted, (out, oc) as
+    boolean_concat_step returns them. With `obuf` (the page form) the
+    windowed (out, oc) go into row rows[i] of it (scatter_page) and the
+    call returns None."""
+    keep, oc = concat_marks_torch(svals, meta, op, K)
+    if prefix_p:
+        W = min(svals.shape[1], prefix_p * K)
+        out = compact_rows(svals[:, :W], keep[:, :W])[:, : min(W, prefix_p)]
+        if obuf is not None:
+            scatter_page(obuf, rows, out, oc)
+            return None
+        return out, oc
+    return compact_rows(svals, keep), oc
+
+
+def check_step_args(op: str, prefix_p: int, wire_dedup: bool) -> None:
+    if op not in ("and", "or"):
+        raise ValueError(f"op {op!r}: want 'and' or 'or'")
+    if wire_dedup and (prefix_p or op != "or"):
+        raise ValueError("wire_dedup is full-result OR only")
+    if prefix_p and op != "or":
+        raise ValueError("prefix_p windowed compaction is OR-only")
 
 
 def boolean_concat_step(blocks, term_block_start, counts, idx, found,
@@ -110,47 +203,14 @@ def boolean_concat_step(blocks, term_block_start, counts, idx, found,
       * wire_dedup (full-result OR only; no tombstone filter afterwards):
         the sorted stream WITH cross-list duplicates and oc = the count of
         valid lanes; results are sorted unique, so a zero delta marks a
-        duplicate and the host drops it (models/steps._dedup_adjacent)."""
-    if op not in ("and", "or"):
-        raise ValueError(f"op {op!r}: want 'and' or 'or'")
-    if wire_dedup and (prefix_p or op != "or"):
-        raise ValueError("wire_dedup is full-result OR only")
-    if prefix_p and op != "or":
-        raise ValueError("prefix_p windowed compaction is OR-only")
-    Q, K = idx.shape
-    S = SB * BLOCK
-    dev = blocks.device
-    kv = k_valid.to(torch.int64)
-    kmask = torch.arange(K, device=dev)[None, :] < kv[:, None]
-    live = found & kmask
-    cnt = torch.where(live, counts[idx].to(torch.int64), 0)
-    rows, in_use, bit, cnt_j, cum = concat_layout(
-        term_block_start[idx].to(torch.int64), cnt, SB)
-    flat, vals, mask = decode_masked(blocks, rows, in_use, bit, cnt_j)
+        duplicate and the host drops it (models/steps._dedup_adjacent).
+
+    This is the plain chain, the executable spec of ops/cuda_concat.py's
+    kernels; on CUDA tensors its sorts and compaction run through K4."""
+    check_step_args(op, prefix_p, wire_dedup)
+    flat, meta = concat_decode_torch(blocks, term_block_start, counts, idx,
+                                     found, k_valid, SB)
     svals = sort_rows(flat, run=BLOCK)
-    first = torch.cat([torch.ones((Q, 1), dtype=torch.bool, device=dev),
-                       svals[:, 1:] != svals[:, :-1]], dim=1)
-    if op == "and":
-        keep = run_reaches_k(svals, kv, K) & first & (svals != SENT)
-        # a genuine 0xFFFFFFFF in every list merges with the fill: test each
-        # list's LAST value instead
-        has_ff = (cnt > 0) & (last_values(vals, cum, cnt) == SENT)
-        ff_all = ((has_ff | ~live).all(dim=1) & (kv > 0) & live.any(dim=1))
-        # an absent REQUIRED term voids the AND
-        any_missing = (kmask & ~found).any(dim=1)
-        keep &= ~any_missing[:, None]
-        ff_all &= ~any_missing
-        oc = (keep.sum(dim=1) + ff_all.to(torch.int64)).to(torch.int32)
-    else:
-        n_valid = mask.reshape(Q, S).sum(dim=1).to(torch.int32)
-        if wire_dedup:
-            return svals, n_valid
-        in_region = (torch.arange(S, device=dev)[None, :]
-                     < n_valid.to(torch.int64)[:, None])
-        keep = first & in_region
-        oc = keep.sum(dim=1).to(torch.int32)
-    if prefix_p:
-        W = min(S, prefix_p * K)
-        out = compact_rows(svals[:, :W], keep[:, :W])[:, : min(W, prefix_p)]
-        return out, oc
-    return compact_rows(svals, keep), oc
+    if wire_dedup:
+        return svals, meta[0]
+    return concat_compact_torch(svals, meta, op, idx.shape[1], prefix_p)

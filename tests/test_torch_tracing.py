@@ -1,15 +1,18 @@
 """The port's span recorder (utils/tracing.py) and the staged streams'
 counters, on the CPU: nothing recorded while tracing is off or outside a
 call, the spans' nesting and self times under a CPU torch.profiler, the
-concat singles, and last_stream_stats on every route (device AND and page
-streams, the host route, the hybrid stream, lookup_staged)."""
+concat singles and steps, and last_stream_stats on every route (device AND
+and page streams, the host route, the hybrid stream, lookup_staged, the
+delta window, an empty index)."""
 import numpy as np
 import pytest
 import torch
 
-from inverted_index_2_tpu_torch import QueryEngine
+from inverted_index_2_tpu_torch import InvertedIndex, QueryEngine
 from inverted_index_2_tpu_torch.models import query_engine as port_qe
+from inverted_index_2_tpu_torch.models import staged
 from inverted_index_2_tpu_torch.models.snapshot import (
+    _empty_tables,
     build_host_tables,
     upload_tables,
 )
@@ -123,6 +126,20 @@ def _same(a, b):
 def followups(monkeypatch):
     """Ladder re-serves up to 1024 ids; longer bases to the concat AND."""
     monkeypatch.setattr(port_qe, "MAX_LEVEL", 1024)
+
+
+@pytest.fixture
+def steps_run(monkeypatch):
+    """The concat steps the streams launch, counted as they run."""
+    calls = [0]
+    real = staged.concat_step
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(staged, "concat_step", counted)
+    return calls
 
 
 @pytest.mark.parametrize("kind", ["and", "page"])
@@ -251,13 +268,15 @@ def _blocks(lists, terms, q):
 
 @pytest.mark.parametrize("kind", ["and", "page"])
 def test_concat_singles_past_the_largest_class(corpus, followups,
-                                               monkeypatch, kind):
+                                               monkeypatch, steps_run, kind):
     lists, terms, tables = corpus
     eng = _engine(tables)
     monkeypatch.setattr(eng, "_SB_CLASSES", (8,))
     res = _serve(eng, kind, terms)
     _check(res, kind, lists, terms)
     st = eng.last_stream_stats
+    # every class chunk and single is one concat step
+    assert st["concat_chunks"] == steps_run[0] > 0
     if kind == "and":
         # the concat AND's queries: bases past the level cap
         over = [q for b in _and_batches(terms) for q in b
@@ -269,6 +288,7 @@ def test_concat_singles_past_the_largest_class(corpus, followups,
     singles = sum(_blocks(lists, terms, q) > 8 for q in over)
     assert singles > 0
     assert st["concat_singles"] == singles
+    assert st["concat_chunks"] >= singles
     eng._SB_CLASSES = type(eng)._SB_CLASSES
     _serve(eng, kind, terms)
     assert eng.last_stream_stats["concat_singles"] == 0
@@ -306,10 +326,54 @@ def test_host_route_sets_route_and_host_queries(corpus, monkeypatch):
     assert st["queries"] == st["host_queries"] == n
     assert st["host_batches"] == 2 and st["device_batches"] == 0
     assert st["served_rows"] == st["concat_singles"] == 0
+    assert st["concat_chunks"] == 0
     # lookup_staged serves on the host too with retained tables
     eng.lookup_staged([terms[:3], terms[3:]], columnar=True)
     st = eng.last_stream_stats
     assert st["route"] == "host" and st["host_queries"] == len(terms)
+
+
+def _route_engine(route, corpus, tmp_path):
+    """An engine whose next call takes `route`, and that call."""
+    lists, terms, tables = corpus
+    if route == "empty":
+        eng = QueryEngine(upload_tables(_empty_tables(2), device="cpu"), L=L,
+                          device="cpu")
+        return eng, lambda: eng.boolean_staged([[[b"a"], [b"b", b"c"]]],
+                                               "or", columnar=True)
+    if route == "dual":
+        ii = InvertedIndex(str(tmp_path))
+        for v in range(1, 400):  # a main tier many times the delta
+            ii.put([terms[v % 3], terms[3 + v % 2], f"u{v:04d}".encode()], v)
+        eng = QueryEngine.from_index(ii, L=128, device="cpu")
+        ii.put([terms[0], terms[5]], 1000)
+        assert eng.refresh(ii) and eng.delta is not None
+        return eng, lambda: eng.boolean_staged(
+            [[[terms[0], terms[3]], [terms[1]]]], "or", columnar=True)
+    eng = _engine(tables, keep=route == "host")
+    if route == "lookup":
+        return eng, lambda: eng.lookup_staged([terms[:4], terms[4:]],
+                                              columnar=True)
+    if route == "or":
+        return eng, lambda: eng.boolean_staged(_or_batches(terms), "or",
+                                               columnar=True)
+    kind = "page" if route == "page" else "and"
+    return eng, lambda: _serve(eng, kind, terms)
+
+
+@pytest.mark.parametrize("route,launched", [
+    ("and", True), ("or", True), ("page", True), ("lookup", True),
+    ("host", False), ("dual", False), ("empty", False)])
+def test_concat_chunks_on_every_route(corpus, followups, monkeypatch,
+                                      steps_run, tmp_path, route, launched):
+    if route == "host":
+        monkeypatch.setenv("TPI_HOST_BOOL", "all")
+    eng, call = _route_engine(route, corpus, tmp_path)
+    call()
+    st = eng.last_stream_stats
+    assert set(st) == KEYS
+    assert st["concat_chunks"] == steps_run[0]
+    assert (st["concat_chunks"] > 0) == launched
 
 
 def test_lookup_staged_on_the_device_is_one_call(corpus):
