@@ -32,7 +32,11 @@ Phases; any failure raises and the script exits non-zero:
      real dispatches, captured with their hints (the first pair-union
      matrix and compaction input of the dual stream at L and at each
      ladder level, the first concat-class chunk of the OR and OR-page
-     streams), each also held against its precondition; each timed with
+     streams), each also held against its precondition; the full-result
+     wire codec's kernels (ops/cuda_wire.py: the masked max delta and the
+     delta pack) on the chunks captured from the AND follow-ups' route,
+     the OR stream and (phase 6) a mesh OR pass, and none called by the
+     page stream; each timed with
      CUDA events beside its plain version, torch.sort for K4, and its bound
      (for K3, the lists its inputs need, shortest first: a query's AND
      stops at its first empty running result; for K2, the probe blocks a
@@ -1369,6 +1373,124 @@ def _check_concat(torch, step, label, reps=10):
     return res
 
 
+class CaptureWire:
+    """While active, records the arguments of the wire codec's calls that
+    models/staged.py and parallel/mesh_engine.py make (the masked max delta
+    of each full-result chunk, the pack of each chunk shipped at 8 or 16
+    bits), the first and the largest (the most lanes) of each, and passes
+    every call through: .meta and .pack = {"first", "largest"}."""
+
+    def __enter__(self):
+        from inverted_index_2_tpu_torch.models import staged
+        from inverted_index_2_tpu_torch.ops import cuda_wire
+        from inverted_index_2_tpu_torch.parallel import mesh_engine
+
+        self.meta, self.pack = {}, {}
+        targets = ((staged, "wire_meta"), (staged, "wire_pack"),
+                   (mesh_engine, "wire_meta"))
+        self._saved = [(m, a, getattr(m, a)) for m, a in targets]
+
+        def keep(got, args):
+            got.setdefault("first", args)
+            big = got.get("largest")
+            if big is None or args[0].numel() > big[0].numel():
+                got["largest"] = args
+
+        def wire_meta(o, oc):
+            keep(self.meta, (o, oc))
+            return cuda_wire.wire_meta(o, oc)
+
+        def wire_pack(o, bits, maxc):
+            keep(self.pack, (o, bits, maxc))
+            return cuda_wire.wire_pack(o, bits, maxc)
+
+        for m, a, _ in self._saved:
+            setattr(m, a, wire_meta if a == "wire_meta" else wire_pack)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, real in self._saved:
+            setattr(m, a, real)
+        return False
+
+    def verify(self, torch, label, pack=True):
+        """The first and the largest captured call of each against the
+        plain steps (_check_wire); pack=False: the path may ship every
+        chunk raw. Returns the largest calls' rows."""
+        check("first" in self.meta, f"{label}: no wire meta was computed")
+        check(not pack or "first" in self.pack,
+              f"{label}: no chunk was packed at 8 or 16 bits")
+        res = {}
+        for name, got in (("wire_meta", self.meta), ("wire_pack", self.pack)):
+            if not got:
+                print(f"[phase 3] {name}, {label}: not called (every chunk "
+                      "shipped raw or held one value a row)")
+                continue
+            if got["largest"] is not got["first"]:
+                _check_wire(torch, name, got["first"], f"{label}, first",
+                            reps=3)
+            res[name] = _check_wire(torch, name, got["largest"],
+                                    f"{label}, largest")
+        self.meta, self.pack = {}, {}
+        return res
+
+
+def _check_wire(torch, name, args, label, reps=10):
+    """One captured wire codec call (CaptureWire) run again through the
+    kernel (ops/cuda_wire.py) and through the plain step on the same
+    inputs, bit-identical, timed beside the plain step and its bound.
+    Returns (0, ms, plain ms, None, bound ms, bound_by)."""
+    from inverted_index_2_tpu_torch.models.steps import (
+        _wire_meta_step, _wire_pack_step)
+    from inverted_index_2_tpu_torch.ops.cuda_wire import wire_meta, wire_pack
+
+    o = args[0]
+    n, S = o.shape
+    if name == "wire_meta":
+        oc = args[1]
+        got, want = wire_meta(o, oc), _wire_meta_step(o, oc)
+        torch.cuda.synchronize()
+        check(int(got) == int(want), f"wire_meta {label}: {int(got)}, the "
+              f"plain step {int(want)}")
+        kept = int(oc.to(torch.int64).clamp(0, S).sum())
+        # bytes: the kept lanes and the counts read, the word written
+        nbytes = 4 * kept + 4 * n + 8
+        what = f"max delta {int(got)}, {kept} kept lanes"
+
+        def kernel():
+            return wire_meta(o, oc)
+
+        def plain():
+            return _wire_meta_step(o, oc)
+    else:
+        bits, maxc = args[1], args[2]
+        f, dd = wire_pack(o, bits, maxc)
+        pf, pdd = _wire_pack_step(o, bits)
+        torch.cuda.synchronize()
+        check(torch.equal(f, pf) and torch.equal(dd, pdd[:, :maxc - 1]),
+              f"wire_pack {label}: the first values or the deltas differ "
+              "from the plain step's")
+        del f, dd, pf, pdd
+        # bytes: maxc lanes a row read, the first values and the deltas
+        # written
+        nbytes = n * maxc * 4 + n * 4 + n * (maxc - 1) * bits // 8
+        what = f"{bits} bits, maxc {maxc}"
+
+        def kernel():
+            return wire_pack(o, bits, maxc)
+
+        def plain():  # as the stream ran it: the whole row, then cut
+            first, deltas = _wire_pack_step(o, bits)
+            return first, deltas[:, :maxc - 1]
+    k_ms, e_ms = kernel_ms(torch, kernel, reps)
+    p_ms = time_ms(torch, plain, 3)
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"[phase 3] {name} ({n}, {S}) {label}: bit-identical, {what}, "
+          f"kernel {k_ms:.4f} ms ({e_ms:.4f} back to back), plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return (0, k_ms, p_ms, None, b_ms, b_by)
+
+
 def phase_intersect(torch, eng, st, batches, baseline=None):
     """Phase 3, K3: bit-identical to its plain version, whole rows and
     counts, on the lists the dual step's AND runs on in the delta window
@@ -2238,6 +2360,9 @@ def phase_mesh_kernels(torch, m, batch):
     res["compact_rows.mesh"] = _check_compact(
         torch, vals, keep, f"mesh OR tile, D={s.n_devices}")
     del cap, x, vals, keep
+    with CaptureWire() as cw:
+        m.boolean(batch, "or")
+    cw.verify(torch, f"mesh OR pass, D={s.n_devices}", pack=False)
     torch.cuda.empty_cache()
     return res
 
@@ -3513,7 +3638,8 @@ def main(argv=None) -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     from inverted_index_2_tpu_torch.ops import (
-        _build, cuda_bool, cuda_concat, cuda_decode, cuda_fused, cuda_sort)
+        _build, cuda_bool, cuda_concat, cuda_decode, cuda_fused, cuda_sort,
+        cuda_wire)
 
     t0 = time.perf_counter()
     _build.library()
@@ -3544,20 +3670,26 @@ def main(argv=None) -> int:
     # compaction runs on none of them
     st0 = eng._serving_state()
     qk0, kv0 = eng._pack_boolean(st0, uniform_b[0])
-    with CaptureConcat() as cc:
+    with CaptureConcat() as cc, CaptureWire() as cw:
         eng._boolean_concat(st0, uniform_b[0], qk0, kv0, "and", None)
     kern.update(cc.verify(torch, "the AND follow-ups' route, uniform batch"))
+    cw.verify(torch, "the AND follow-ups' route, uniform batch", pack=False)
     del st0, qk0, kv0
-    with CaptureK4() as cap, CaptureConcat() as cc:
+    with CaptureK4() as cap, CaptureConcat() as cc, CaptureWire() as cw:
         eng.boolean_staged(uniform_b, "or", columnar=True)
     cap.verify(torch, "first concat-class chunk of the OR stream",
                compact=False)
     cc.verify(torch, "the OR stream")
-    with CaptureK4() as cap, CaptureConcat() as cc:
+    # the wire codec's rows of the kernels line: the OR stream's chunks
+    # (wire dedup: K4's sorted stream and its lane counts)
+    kern.update(cw.verify(torch, "the OR stream"))
+    with CaptureK4() as cap, CaptureConcat() as cc, CaptureWire() as cw:
         eng.boolean_staged(uniform_b, "or", columnar=True, prefix_p=PAGE_P)
     cap.verify(torch, "first concat-class chunk of the OR page stream",
                compact=False)
     cc.verify(torch, "the OR page stream")
+    check(not cw.meta and not cw.pack,
+          "the OR page stream called the full-result wire codec")
     del cap, cc
     phase_engine_small(torch, "cuda")
     phase_refresh(torch, "cuda")
@@ -3570,7 +3702,9 @@ def main(argv=None) -> int:
                 "intersect_many": cuda_bool.intersect_many,
                 "sort_rows": cuda_sort.sort_rows,
                 "concat_decode": cuda_concat.concat_decode,
-                "concat_compact": cuda_concat.concat_compact}
+                "concat_compact": cuda_concat.concat_compact,
+                "wire_meta": cuda_wire.wire_meta,
+                "wire_pack": cuda_wire.wire_pack}
     launches = {name: 0 for name in counters}
     per_path = {}
 
@@ -3694,7 +3828,8 @@ def main(argv=None) -> int:
                              "fused_and.compact")),
             ("and zipf", ("fused_and.width",)),
             ("lookup", ("decode_postings",)),
-            ("or uniform", concat), ("or zipf", concat),
+            ("or uniform", concat + ("wire_meta",)),
+            ("or zipf", concat + ("wire_meta",)),
             ("or pages", concat + ("concat_compact",)),
             ("lookup_staged", concat),
             ("dual and uniform", dual + ("intersect_many",)),
@@ -3713,10 +3848,11 @@ def main(argv=None) -> int:
                         "sort_rows.runs", "sort_rows.compact"))) + tuple(
                 (f"mesh{D} {p}", names) for D in MESH_DS
                 for p, names in (
-                    ("lookup", ("decode_postings",)),
-                    ("and", ("decode_postings", "intersect_many")),
+                    ("lookup", ("decode_postings", "wire_meta")),
+                    ("and", ("decode_postings", "intersect_many",
+                             "wire_meta")),
                     ("or", ("decode_postings",) + runs
-                     + ("sort_rows.compact",)),
+                     + ("sort_rows.compact", "wire_meta")),
                     ("pages", ("decode_postings",) + runs
                      + ("sort_rows.compact",)),
                     ("lookup_staged", ("decode_postings",
@@ -3734,6 +3870,10 @@ def main(argv=None) -> int:
             check(got["fused_and"] == 0, f"the {path} path launched K2")
             for name, c in got.items():
                 mesh_launches[name] += c
+    # the concat stream's page form writes its buffer: no wire codec
+    check(per_path["or pages"]["wire_meta"] == 0
+          and per_path["or pages"]["wire_pack"] == 0,
+          "the or pages path called the full-result wire codec")
     for path in ("host and uniform", "host and zipf", "host or uniform",
                  "host lookup_staged"):
         check(not any(per_path[path].values()),
@@ -3759,6 +3899,8 @@ def main(argv=None) -> int:
     # no TPU kernel: the JAX package runs the concat step as plain XLA
     concat_src = (src + "concat_step.cu",
                   "inverted_index_2_tpu/ops/concat_bool.py:139")
+    # no TPU kernel either: the JAX package's wire steps are plain XLA
+    wire_src = src + "wire.cu"
     # name -> (source, replaces, the launch count it reports). K1 has one
     # entry (its second row is the dual step's shape). K2 has a row per
     # output that the paths launch: "fused_and" is the width-P page of the
@@ -3772,7 +3914,9 @@ def main(argv=None) -> int:
     # (K1 with partition 0's found mask, K3 on a query tile, K4's sort and
     # compaction of an OR tile), with the launches of the mesh paths alone.
     # The concat rows are the largest chunk of the AND follow-ups' route
-    # (phase 3; the OR stream's and the page stream's are in its lines)
+    # (phase 3; the OR stream's and the page stream's are in its lines),
+    # the wire rows the largest chunk of the OR stream (phase 3; the AND
+    # route's and the mesh's are in the phase-3 lines)
     meta = {"decode_postings": k1 + ("decode_postings",),
             "decode_postings.found": k1 + ("decode_postings",),
             "fused_and": k2 + ("fused_and.width",),
@@ -3786,7 +3930,11 @@ def main(argv=None) -> int:
             "sort_rows.mesh": k4 + ("sort_rows.runs",),
             "compact_rows.mesh": k4 + ("sort_rows.compact",),
             "concat_decode": concat_src + ("concat_decode",),
-            "concat_compact": concat_src + ("concat_compact",)}
+            "concat_compact": concat_src + ("concat_compact",),
+            "wire_meta": (wire_src, "inverted_index_2_tpu/models/steps.py:459",
+                          "wire_meta"),
+            "wire_pack": (wire_src, "inverted_index_2_tpu/models/steps.py:468",
+                          "wire_pack")}
     rows = []
     for name, (source, replaces, counted) in meta.items():
         err, ms, plain_ms, lib_ms, b_ms, b_by = kern[name]

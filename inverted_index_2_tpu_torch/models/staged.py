@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda_concat import concat_step
+from ..ops.cuda_wire import wire_meta, wire_pack
 from ..ops.setops import filter_removed as _filter_removed
 from ..utils import tracing
 from ..utils.u32 import to_numpy_u32
@@ -43,8 +44,6 @@ from .steps import (
     _rows_to_columnar,
     _scatter_p_step,
     _split_idx_step,
-    _wire_meta_step,
-    _wire_pack_step,
     _wire_unpack,
 )
 
@@ -85,8 +84,8 @@ def _wire_fetch(outs, ocs, mds):
             pending.append(_start_host_copy([o[:, :1]]))
             wire.append(False)
         elif int(md_h) < (1 << 16):
-            f, dd = _wire_pack_step(o, 8 if int(md_h) < 256 else 16)
-            pending.append(_start_host_copy([f, dd[:, : maxc - 1]]))
+            f, dd = wire_pack(o, 8 if int(md_h) < 256 else 16, maxc)
+            pending.append(_start_host_copy([f, dd]))
             wire.append(True)
         else:
             pending.append(_start_host_copy([o[:, :maxc]]))
@@ -559,7 +558,7 @@ class StagedStreamsMixin:
                 o, oc = run(lo, end, SB, wd)
                 chunks += 1
                 if obuf is None:
-                    md = _wire_meta_step(o, oc)
+                    md = wire_meta(o, oc)
                     dispatches.append((order[lo:end], o, oc,
                                        _start_host_copy([oc, md])))
             pos = hi

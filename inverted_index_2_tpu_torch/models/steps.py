@@ -263,6 +263,8 @@ def _pack_p_step(obuf):
 # value u32, deltas u8 or u16) and the host rebuilds rows with one cumsum.
 # The width is chosen per dispatch from the masked max delta, which rides
 # the counts copy; a dispatch whose max delta needs 17+ bits ships raw u32.
+# The streams call the device half through ops/cuda_wire.py (kernels on the
+# card); the two steps below are its plain version.
 
 
 def _wire_meta_step(o, oc):

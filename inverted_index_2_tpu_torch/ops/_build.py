@@ -1,6 +1,6 @@
 """Build and load the CUDA kernels of csrc/ (K1 decode, K2 fused AND, K3
 sorted-set AND, K4 row sort, merge and compaction, the concat-class step's
-decode and compaction).
+decode and compaction, the full-result wire codec's meta and pack).
 
 At first use (never at import) nvcc compiles every `csrc/*.cu` for Hopper
 (`sm_90a`), one process per source in parallel, and links them into one
@@ -114,6 +114,10 @@ def _bind(lib):
     lib.tpi_concat_compact.argtypes = [vp, i64, vp, i64, i, i, vp, vp, vp, vp,
                                        vp, i64, i, vp]
     lib.tpi_concat_compact.restype = i
+    lib.tpi_wire_meta.argtypes = [vp, i64, i64, i64, vp, i, vp, vp]
+    lib.tpi_wire_meta.restype = i
+    lib.tpi_wire_pack.argtypes = [vp, i64, i64, i64, i, vp, vp, vp]
+    lib.tpi_wire_pack.restype = i
     lib.tpi_error_string.argtypes = [i]
     lib.tpi_error_string.restype = ctypes.c_char_p
     return lib

@@ -40,9 +40,9 @@ from ..models.steps import (
     _pack_queries,
     _round_up,
     _rows_to_columnar,
-    _wire_meta_step,
 )
 from ..ops import _build, setops
+from ..ops.cuda_wire import wire_meta
 from ..utils.u32 import to_device
 from . import mesh as pm
 
@@ -300,7 +300,7 @@ class MeshQueryEngine:
         found, vals, n, raw = pm.make_sharded_lookup_scatter(s, lv)(qk)
         if filter_removed:
             vals, n = self._filter(vals, n, st.removed)
-        md = _wire_meta_step(vals, n)
+        md = wire_meta(vals, n)
         found, n, raw, md = _finish_host_copy(
             _start_host_copy([found, n, raw, md]))
         return found, n, raw, self._fetch_trimmed(vals, n, md)
@@ -371,7 +371,7 @@ class MeshQueryEngine:
             o2, c2, _ = self._boolean_dispatch(st, lv, bq, bkv, op)
             if filter_removed:
                 o2, c2 = self._filter(o2, c2, st.removed)
-            md2 = _wire_meta_step(o2, c2)
+            md2 = wire_meta(o2, c2)
             c2, md2 = _finish_host_copy(_start_host_copy([c2, md2]))
             o2 = self._fetch_trimmed(o2, c2, md2)
             for j, t in enumerate(batch):
@@ -388,7 +388,7 @@ class MeshQueryEngine:
         out, oc, need = self._boolean_dispatch(st, self.L, qk, kv, op)
         if filter_removed:
             out, oc = self._filter(out, oc, st.removed)
-        md = _wire_meta_step(out, oc)
+        md = wire_meta(out, oc)
         oc, need, md = _finish_host_copy(_start_host_copy([oc, need, md]))
         out = self._fetch_trimmed(out, oc, md)
         results: List[Optional[np.ndarray]] = [None] * len(queries)
@@ -476,7 +476,7 @@ class MeshQueryEngine:
                 pending = _start_host_copy([out, oc, need])
             else:
                 pending = _start_host_copy([oc, need,
-                                            _wire_meta_step(out, oc)])
+                                            wire_meta(out, oc)])
             pend.append((bi, len(queries), qk, kv, out, pending))
             if len(pend) > depth:
                 harvest(pend.popleft())
